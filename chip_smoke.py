@@ -1,0 +1,364 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``rl6nimmt_torch/csrc`` (nvcc, one
+process per source), then:
+
+1. prints the card, its power limit, the torch/CUDA versions, the build time
+   and ptxas registers/spills per kernel;
+2. holds K1-K4 against their plain PyTorch twins at the main path's shapes
+   (P=4, G=4096, hidden 64): K1-K3 bit-exact, K4 with exact deals, action
+   agreement >= 0.999 and equal observations/rewards in agreeing games;
+3. replays K4's games on the engine path (``greedy_replay_agreement``);
+4. drives the main path with every launch counter at 0: 3 random-rollout
+   generations fused (K3) and on the engine path (K2 + K1), then 3 flagship
+   Noisy-D3QN-PER-10step cycles (PER 200,000, 8 updates, Adam 1e-3) on the
+   engine path and 3 with ``kernel_act_rollout=True`` (K4); every kernel must
+   have launched; then two cycles from one state and one injected randomness
+   must agree bit for bit;
+5. times each kernel and its twin with CUDA events, and the rollouts and
+   cycles in env-steps/s.
+
+Prints one JSON line of kernels, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
+is no CUDA device, when the package is missing, or when any check fails.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+
+G = 4096
+HIDDEN = 64
+CYCLES = 3
+GENERATIONS = 3
+PER_CAPACITY = 200_000
+LEARN_ITERS = 8
+FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
+                hidden_sizes=(HIDDEN,), minibatch=64)
+
+# Peak rates of one H100 SXM (NVIDIA's published figures): HBM
+# bytes/s and float32 operations/s outside the tensor cores.  Integer work is
+# charged at the float32 rate, which can only make a bound smaller.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# Integer-operation model of the game kernels (per the csrc sources): one
+# Philox4x32-10 block is 10 rounds of 2 mul-hi/lo pairs, 4 xors and 2 key adds.
+PHILOX_BLOCK_OPS = 10 * 10
+SWAP_OPS = 6            # one Fisher-Yates step: draw scale, two loads, two stores, add
+SUBPLAY_OPS = 6 * 4 + 10  # row search and cheapest row over R=4 rows, update
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi: n/a"
+
+
+def cuda_ms(fn, iters):
+    """Mean milliseconds per call of ``fn`` over ``iters`` calls (CUDA events, after warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_seconds(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def profile_cycle(fn, mode):
+    """One traced call: wall time, device busy time, idle share, the three
+    cycle phases and the ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Device work = the kernel (and copy) events themselves; the aten ops and
+    # the cycle.* spans only attribute that same time, so they are left out.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("cycle.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # Span times on the host clock: the cycle is dispatch-bound, so this is
+    # where its time goes.  The profiler's device-side span times were not
+    # reliable on the card (a rollout span holding a 3.5 ms kernel read 0.03 ms).
+    spans = {e.key: e.cpu_time_total / 1e3 for e in events
+             if e.key.startswith("cycle.") and e.device_type == DeviceType.CPU}
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {"profile": f"dqn_cycle_{mode}", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": sum(e.count for e in kernels),
+            "phase_host_ms": spans,
+            "top_kernels": [{"kernel": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(pairs):
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in pairs)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_leaves
+    from rl6nimmt_torch.buffers import per_clone, per_init
+    from rl6nimmt_torch.engine import EnvConfig, deal, step
+    from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
+    from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
+    from rl6nimmt_torch.ops.game_kernel import (deal_games, deal_games_plain, play_random_games,
+                                                play_random_games_plain)
+    from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+    from rl6nimmt_torch.runtime.vector import (draw_cycle_randomness, dqn_replay_example,
+                                               make_dqn_selfplay_step, make_random_rollout_generations)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls in the twins and the learner
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = smi_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # ------------------------------------------------------------ phase 1
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+    for name, info in sorted(_build.BUILD_INFO.get("ptxas", {}).items()):
+        log(f"[1] ptxas {name}: {info}")
+
+    cfg = EnvConfig(4)
+    dqn = DQNConfig(**FLAGSHIP)
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    gen = torch.Generator(device=dev).manual_seed(20261016)
+    params = mlp_init(gen, spec)
+    turn_noise = draw_mlp_noise(spec, gen, batch=(cfg.max_turns,))
+    eff = turn_effective_weights(spec, params, turn_noise)
+    k4_args = tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
+                                             eff["heads"][1]["w"], eff["heads"][1]["b"]))
+    play = make_act_rollout_kernel(cfg, G, HIDDEN)
+
+    # ------------------------------------------------------------ phase 2
+    errs, k1_inputs = {}, None
+    state = deal(cfg, 1, G, device=dev)
+    for t in range(cfg.max_turns):
+        hs = state.hands_sorted
+        r = torch.floor(torch.rand(hs.shape[:2], generator=gen, device=dev) * (hs >= 0).sum(-1)).long()
+        acts = torch.gather(hs, -1, r[..., None]).squeeze(-1).contiguous()
+        if t == 5:
+            k1_inputs = (state.board, state.row_len, acts)
+        out_k = resolve_turn(cfg, state.board, state.row_len, acts)
+        out_p = resolve_turn_plain(cfg, state.board, state.row_len, acts)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            raise AssertionError(f"K1 resolve_turn differs from its twin at turn {t}")
+        errs["resolve_turn"] = max(errs.get("resolve_turn", 0.0), max_abs_err(zip(out_k, out_p)))
+        state, _ = step(cfg, state, acts)
+    out_k, out_p = deal_games(cfg, 77, G, device=dev), deal_games_plain(cfg, 77, G, dev)
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise AssertionError("K2 deal_games differs from its twin")
+    errs["deal_games"] = max_abs_err(zip(out_k, out_p))
+    out_k, out_p = play_random_games(cfg, 78, G, device=dev), play_random_games_plain(cfg, 78, G, dev)
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise AssertionError("K3 play_random_games differs from its twin")
+    errs["play_random_games"] = max_abs_err(zip(out_k, out_p))
+    (ok, ak, rk), (op, ap, rp) = play(79, *k4_args), act_rollout_plain(cfg, 79, G, *k4_args)
+    if not torch.equal(ok[0], op[0]):
+        raise AssertionError("K4 deals differ from its twin's")
+    k4_agree = (ak == ap).float().mean().item()
+    same = (ak == ap).all(dim=(0, 2))
+    if k4_agree < 0.999 or not (torch.equal(ok[:, same], op[:, same]) and torch.equal(rk[:, same], rp[:, same])):
+        raise AssertionError(f"K4 act_rollout vs twin: action agreement {k4_agree}")
+    errs["act_rollout"] = max_abs_err([(ok[:, same], op[:, same]), (rk[:, same], rp[:, same])])
+    log(f"[2] K1-K3 bit-exact vs twins at G={G}; K4 deals exact, action agreement {k4_agree:.6f}, "
+        f"{int(same.sum())}/{G} games identical")
+
+    # ------------------------------------------------------------ phase 3
+    action_agree, score_agree = greedy_replay_agreement(cfg, dqn, spec, params, G, 80, turn_noise)
+    if action_agree < 0.999 or score_agree < 0.999:
+        raise AssertionError(f"greedy replay agreement {action_agree}, {score_agree}")
+    log(f"[3] greedy_replay_agreement at G={G}: actions {action_agree:.6f}, scores {score_agree:.6f}")
+
+    # ------------------------------------------------------------ phase 4
+    adam = Adam(1e-3)
+    cycles = {mode: make_dqn_selfplay_step(cfg, dqn, adam, G, learn_iters=LEARN_ITERS,
+                                           kernel_act_rollout=(mode == "kernel"), device=dev)
+              for mode in ("engine", "kernel")}
+    rollouts = {mode: make_random_rollout_generations(cfg, G, GENERATIONS, fused=(mode == "fused"), device=dev)
+                for mode in ("fused", "engine")}
+    train_state = {}
+    per_unit = {}
+    _build.reset_launches()
+    # ---- main path: every counter starts at 0 here ----
+    totals = {}
+    for mode, fn in rollouts.items():
+        before = dict(_build.LAUNCHES)
+        totals[mode] = fn(1000)
+        per_unit[f"rollout_{mode}"] = {k: (v - before[k]) / GENERATIONS for k, v in _build.LAUNCHES.items()}
+    for mode, cycle in cycles.items():
+        p, tgt = params, {k: [{kk: vv.clone() for kk, vv in l.items()} for l in v] for k, v in params.items()}
+        o, buf = adam.init(params), per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev)
+        cgen = torch.Generator(device=dev).manual_seed(5)
+        before = dict(_build.LAUNCHES)
+        losses = []
+        for c in range(CYCLES):
+            p, tgt, o, buf, m = cycle(p, tgt, o, buf, cgen, 0.0, c * LEARN_ITERS)
+            losses.append(float(m["loss"]))
+        per_unit[f"cycle_{mode}"] = {k: (v - before[k]) / CYCLES for k, v in _build.LAUNCHES.items()}
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite loss in {mode} cycles: {losses}")
+        inserted = CYCLES * G * cfg.num_players * cfg.max_turns
+        if (buf.size, buf.ptr) != (min(inserted, PER_CAPACITY), inserted % PER_CAPACITY):
+            raise AssertionError(f"{mode} cycles left PER size {buf.size}, ptr {buf.ptr}")
+        train_state[mode] = (p, tgt, o, buf)
+        log(f"[4] {CYCLES} flagship cycles ({mode} rollout): losses {losses}, mean score {float(m['mean_score'])}")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    # ---- end of the main path ----
+    log(f"[4] main-path launches: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # Each path launches exactly its own kernels, per generation or cycle.
+    engine_path = {"deal_games": 1, "resolve_turn": cfg.max_turns}
+    expected = {"rollout_engine": engine_path, "rollout_fused": {"play_random_games": 1},
+                "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1}}
+    for path, want in expected.items():
+        got = {k: v for k, v in per_unit[path].items() if v}
+        if got != want:
+            raise AssertionError(f"{path} launched {got} per unit, expected {want}")
+    if not (torch.equal(totals["fused"][0], totals["engine"][0])
+            and float(totals["fused"][1]) == float(totals["engine"][1])):
+        raise AssertionError("fused (K3) and engine (K2+K1) random rollouts disagree on one seed")
+    log(f"[4] random rollouts: fused == engine path over {GENERATIONS} generations "
+        f"(mean score {float(totals['fused'][0].float().mean()) / GENERATIONS:.4f}, checksum {float(totals['fused'][1])})")
+
+    for mode, cycle in cycles.items():
+        p, tgt, o, buf = train_state[mode]
+        rnd = draw_cycle_randomness(cfg, dqn, G, LEARN_ITERS, torch.Generator(device=dev).manual_seed(9))
+        runs = [cycle(p, tgt, o, per_clone(buf), rnd, 0.0, CYCLES * LEARN_ITERS) for _ in range(2)]
+        (p1, _, _, b1, m1), (p2, _, _, b2, m2) = runs
+        same = torch.equal(m1["loss"], m2["loss"]) and torch.equal(b1.priorities, b2.priorities) \
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+        if not same:
+            raise AssertionError(f"determinism guard failed for the {mode} cycle")
+    log("[4] determinism guard: two cycles from one state and one randomness are bit-identical (both modes)")
+
+    # ------------------------------------------------------------ phase 5
+    P, R, T, H, S, A = cfg.num_players, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.state_length, cfg.num_actions
+    turns = cfg.max_turns
+    k1_b, k1_l, k1_a = k1_inputs
+    timing = {
+        "resolve_turn": (lambda: resolve_turn(cfg, k1_b, k1_l, k1_a),
+                         lambda: resolve_turn_plain(cfg, k1_b, k1_l, k1_a), 200, 20),
+        "deal_games": (lambda: deal_games(cfg, 5, G, device=dev),
+                       lambda: deal_games_plain(cfg, 5, G, dev), 200, 5),
+        "play_random_games": (lambda: play_random_games(cfg, 6, G, device=dev),
+                              lambda: play_random_games_plain(cfg, 6, G, dev), 100, 3),
+        "act_rollout": (lambda: play(7, *k4_args),
+                        lambda: act_rollout_plain(cfg, 7, G, *k4_args), 20, 3),
+    }
+    # Bytes each kernel must move (inputs read once, outputs written once) and
+    # the operations these inputs need.
+    k1_bytes = 4 * G * (R * T + R + P) * 2
+    k1_ops = G * (P * SUBPLAY_OPS + P * P)
+    k2_bytes = 4 * G * (R * T + R + P * H)
+    k2_ops = G * (math.ceil((P * H + R) / 4) * PHILOX_BLOCK_OPS + (P * H + R) * SWAP_OPS + P * H * H)
+    k3_bytes = 4 * G * (P + 1)
+    k3_ops = G * (math.ceil((P * H + R + turns * P) / 4) * PHILOX_BLOCK_OPS + (P * H + R) * SWAP_OPS
+                  + turns * (P * (SUBPLAY_OPS + H) + 4 * R))
+    k4_bytes = 4 * turns * (S * HIDDEN + HIDDEN + HIDDEN * A + A) + (turns + 1) * G * P * S + 2 * 4 * turns * G * P
+    k4_flops = G * sum((S - H) * HIDDEN * 2 + P * H * HIDDEN * 2 + P * (H - t) * HIDDEN * 2 for t in range(turns))
+    work = {"resolve_turn": (k1_bytes, k1_ops), "deal_games": (k2_bytes, k2_ops),
+            "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops)}
+    meta = {
+        "resolve_turn": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
+                         f"board i32[{G},{R},{T}], row_len i32[{G},{R}], actions i32[{G},{P}]"),
+        "deal_games": ("rl6nimmt_torch/csrc/game_kernel.cu", "rl6nimmt_tpu/ops/game_kernel.py:290",
+                       f"seed -> board i32[{G},{R},{T}], row_len, hands i32[{G},{P},{H}]"),
+        "play_random_games": ("rl6nimmt_torch/csrc/game_kernel.cu", "rl6nimmt_tpu/ops/game_kernel.py:143",
+                              f"seed -> rewards i32[{G},{P}], checksum f32[{G}]"),
+        "act_rollout": ("rl6nimmt_torch/csrc/act_rollout_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:232",
+                        f"w1 f32[{turns},{S},{HIDDEN}], wa f32[{turns},{HIDDEN},{A}] -> obs i8[{turns + 1},{G},{P},{S}]"),
+    }
+    rows = []
+    for name, (kern, plain, it_k, it_p) in timing.items():
+        ms = cuda_ms(kern, it_k)
+        plain_ms = cuda_ms(plain, it_p)
+        b_ms, b_by = bound_ms(*work[name])
+        src, replaces, shape = meta[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        per = {k: v[name] for k, v in per_unit.items() if v[name]}
+        log(json.dumps({"kernel": name, "ms": ms, "plain_ms": plain_ms, "launches_per_cycle": per,
+                        "shape": shape}))
+
+    steps_per_gen = G * turns
+    rates = {}
+    for mode in ("fused", "engine"):
+        one = make_random_rollout_generations(cfg, G, 1, fused=(mode == "fused"), device=dev)
+        sec = host_seconds(lambda: one(4242), 10 if mode == "fused" else 3)
+        rates[f"random_rollout_{mode}_env_steps_per_s"] = steps_per_gen / sec
+    for mode, cycle in cycles.items():
+        p, tgt, o, buf = train_state[mode]
+        cgen = torch.Generator(device=dev).manual_seed(11)
+        sec = host_seconds(lambda: cycle(p, tgt, o, buf, cgen, 0.0), 3)
+        rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / sec
+    for k, v in rates.items():
+        log(json.dumps({"metric": k, "value": v, "card": card}))
+    for mode, cycle in cycles.items():
+        p, tgt, o, buf = train_state[mode]
+        cgen = torch.Generator(device=dev).manual_seed(12)
+        log(json.dumps(profile_cycle(lambda: cycle(p, tgt, o, buf, cgen, 0.0), mode)))
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception:
+        traceback.print_exc()
+        code = 1
+    sys.exit(code)

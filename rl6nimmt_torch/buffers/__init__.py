@@ -1,0 +1,25 @@
+"""Device replay buffers (port of ``rl6nimmt_tpu.buffers``)."""
+
+from .per import (
+    PERState,
+    per_add_batch,
+    per_clone,
+    per_init,
+    per_sample,
+    per_update,
+)
+from .ring import RingState, circular_write, ring_add_batch, ring_init, ring_sample
+
+__all__ = [
+    "PERState",
+    "RingState",
+    "circular_write",
+    "per_add_batch",
+    "per_clone",
+    "per_init",
+    "per_sample",
+    "per_update",
+    "ring_add_batch",
+    "ring_init",
+    "ring_sample",
+]

@@ -1,0 +1,158 @@
+"""Prioritized experience replay on the device (port of ``buffers/per.py``).
+
+Same constants and math as the JAX version (reference
+replay_buffer.py:15-203): max-priority inserts, stratified sampling resolved
+by the two-level block prefix sum of :func:`_stratified_indices`, IS weights
+``(p / min_p) ** -beta`` with beta annealed by +0.001 per sample, and
+priority updates ``min(|err| + eps, 1) ** alpha``.
+
+Differences from the JAX version, all in ``PARITY_TORCH.md``:
+
+* storage and priorities are updated **in place** (``index_copy_``); the
+  functions still return a new :class:`PERState` carrying the advanced
+  host-side ``ptr``/``size`` and the device-side ``beta``;
+* :func:`per_sample` takes its uniforms ``u[n]`` as an argument (injected
+  randomness), instead of a key;
+* :func:`per_update` resolves duplicate indices explicitly: the LAST
+  occurrence wins, which is what JAX's ``.at[idx].set`` does on the CPU, and
+  the write itself only ever sees unique indices, so it is deterministic on
+  the GPU too.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+
+from ..utils.device import resolve_device
+from .ring import circular_write
+
+ABS_ERROR_UPPER = 1.0
+EPSILON = 0.01
+ALPHA = 0.6
+BETA0 = 0.4
+BETA_INCREMENT = 0.001
+
+
+@dataclass
+class PERState:
+    storage: Dict[str, torch.Tensor]   # leaves [capacity, ...]
+    priorities: torch.Tensor           # f32[capacity], 0 for empty slots
+    ptr: int
+    size: int
+    beta: torch.Tensor                 # f32 scalar on the device
+
+    @property
+    def capacity(self) -> int:
+        return self.priorities.shape[0]
+
+
+def per_init(capacity: int, example: Dict[str, torch.Tensor], device="cuda") -> PERState:
+    """Allocate a PER buffer shaped after one example transition."""
+    device = resolve_device(device)
+    storage = {k: torch.zeros((capacity,) + tuple(v.shape), dtype=v.dtype, device=device)
+               for k, v in example.items()}
+    return PERState(
+        storage=storage,
+        priorities=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        ptr=0,
+        size=0,
+        beta=torch.tensor(BETA0, dtype=torch.float32, device=device),
+    )
+
+
+def per_clone(state: PERState) -> PERState:
+    """A deep copy (the in-place functions would otherwise share storage)."""
+    return PERState({k: v.clone() for k, v in state.storage.items()},
+                    state.priorities.clone(), state.ptr, state.size, state.beta.clone())
+
+
+def per_add_batch(state: PERState, items: Dict[str, torch.Tensor]) -> PERState:
+    """Batch insert at the current max priority (1.0 in an empty buffer), in place."""
+    n = next(iter(items.values())).shape[0]
+    cap = state.capacity
+    if n > cap:
+        raise ValueError(f"batch of {n} transitions exceeds buffer capacity {cap}")
+    max_p = state.priorities.max()
+    priority = torch.where(max_p == 0.0, torch.ones_like(max_p) * ABS_ERROR_UPPER, max_p)
+    for k, buf in state.storage.items():
+        circular_write(buf, items[k], state.ptr)
+    circular_write(state.priorities, priority.expand(n), state.ptr)
+    return PERState(state.storage, state.priorities, (state.ptr + n) % cap,
+                    min(state.size + n, cap), state.beta)
+
+
+def _block_size(capacity: int) -> int:
+    """Power-of-two block width near sqrt(capacity), in [64, 1024]."""
+    b = 64
+    while b * b < capacity and b < 1024:
+        b *= 2
+    return b
+
+
+def _stratified_indices(pri: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """First index where ``cumsum(pri)`` reaches each ``u`` (side='left').
+
+    The same two-level resolution as the JAX version (block sums, a cumsum
+    over blocks, then a cumsum inside the chosen block), so rounding and the
+    chosen slots match it rather than a global ``cumsum`` + ``searchsorted``.
+    """
+    cap = pri.shape[0]
+    B = _block_size(cap)
+    nb = -(-cap // B)
+    padded = torch.nn.functional.pad(pri, (0, nb * B - cap))
+    blocks = padded.reshape(nb, B)
+    bcum = torch.cumsum(blocks.sum(dim=1), dim=0)                       # [nb]
+    b = (bcum[None, :] < u[:, None]).sum(dim=1)                          # [n]
+    b = torch.clamp(b, max=nb - 1)
+    prefix = torch.where(b > 0, bcum[torch.clamp(b - 1, min=0)], torch.zeros_like(u))
+    residual = u - prefix
+    icum = torch.cumsum(blocks[b], dim=1)                                # [n, B]
+    j = (icum < residual[:, None]).sum(dim=1)
+    return b * B + torch.clamp(j, max=B - 1)
+
+
+def per_sample(state: PERState, u: torch.Tensor, n: int
+               ) -> Tuple[PERState, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Stratified priority sample from injected uniforms ``u[n]`` in [0, 1).
+
+    Returns ``(state', indices, importance_weights, batch)``; ``state'`` only
+    differs in the annealed beta.
+    """
+    pri = state.priorities
+    total = pri.sum()
+    beta = torch.clamp(state.beta + BETA_INCREMENT, max=1.0)
+    segment = total / n
+    uu = (torch.arange(n, dtype=torch.float32, device=pri.device) + u.to(torch.float32)) * segment
+    idx = _stratified_indices(pri, uu)
+    # Snap a draw that landed on a dead (zero-priority) slot to the
+    # max-priority slot, as the JAX version does.
+    idx = torch.where(pri[idx] > 0.0, idx, torch.argmax(pri))
+    probs = pri[idx] / total
+    min_prob = torch.where(pri > 0.0, pri, torch.full_like(pri, float("inf"))).min() / total
+    weights = torch.pow(probs / min_prob, -beta)
+    batch = {k: buf[idx] for k, buf in state.storage.items()}
+    return PERState(state.storage, pri, state.ptr, state.size, beta), idx, weights, batch
+
+
+def last_occurrence(idx: torch.Tensor) -> torch.Tensor:
+    """``int64[n]``: for each entry, the position of the last entry with the same index."""
+    n = idx.shape[0]
+    pos = torch.arange(n, device=idx.device)
+    same = idx[None, :] == idx[:, None]
+    return torch.where(same, pos[None, :], -1).max(dim=1).values
+
+
+def per_update(state: PERState, idx: torch.Tensor, abs_errors: torch.Tensor) -> PERState:
+    """Write back clipped TD-error priorities for sampled indices, in place.
+
+    Duplicate indices: the last occurrence wins (see the module docstring).
+    Every writer of a slot writes that last value, so the scatter's order
+    cannot matter and no host sync is needed.
+    """
+    clipped = torch.clamp(torch.abs(abs_errors) + EPSILON, max=ABS_ERROR_UPPER)
+    new_p = torch.pow(clipped, ALPHA).to(torch.float32)
+    state.priorities[idx] = new_p[last_occurrence(idx)]
+    return state

@@ -1,0 +1,32 @@
+"""Batched 6 nimmt! engine (port of ``rl6nimmt_tpu.engine``)."""
+
+from .cards import POINTS_104, build_points_table, card_points
+from .env import (
+    card_points_formula,
+    deal,
+    init_from_deck,
+    is_done,
+    legal_mask,
+    observe,
+    row_points,
+    state_from_deal,
+    step,
+)
+from .state import EnvConfig, EnvState
+
+__all__ = [
+    "EnvConfig",
+    "EnvState",
+    "POINTS_104",
+    "build_points_table",
+    "card_points",
+    "card_points_formula",
+    "deal",
+    "init_from_deck",
+    "is_done",
+    "legal_mask",
+    "observe",
+    "row_points",
+    "state_from_deal",
+    "step",
+]

@@ -1,0 +1,31 @@
+"""Functional nets (port of ``rl6nimmt_tpu.nets``)."""
+
+from .convert import noise_from_jax, params_from_jax, params_to_numpy
+from .mlp import (
+    MLPSpec,
+    draw_mlp_noise,
+    dueling_apply,
+    linear_apply,
+    linear_init,
+    mlp_apply,
+    mlp_init,
+    noisy_effective_params,
+    noisy_linear_apply,
+    noisy_linear_init,
+)
+
+__all__ = [
+    "MLPSpec",
+    "draw_mlp_noise",
+    "dueling_apply",
+    "linear_apply",
+    "linear_init",
+    "mlp_apply",
+    "mlp_init",
+    "noise_from_jax",
+    "noisy_effective_params",
+    "noisy_linear_apply",
+    "noisy_linear_init",
+    "params_from_jax",
+    "params_to_numpy",
+]

@@ -1,0 +1,91 @@
+"""The port imports no JAX and no rl6nimmt_tpu, and its entry points need a
+card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import rl6nimmt_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = sorted(m.name for m in pkgutil.walk_packages(rl6nimmt_torch.__path__, "rl6nimmt_torch."))
+
+BLOCKER = (
+    "import sys\n"
+    "for name in ('jax', 'jaxlib', 'optax', 'flax', 'rl6nimmt_tpu'):\n"
+    "    sys.modules[name] = None\n"
+)
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", BLOCKER + code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_every_module_imports_with_jax_blocked():
+    imports = "".join(f"import {m}\n" for m in MODULES)
+    out = _run(imports + "print('ok')")
+    assert out.returncode == 0, out.stderr
+    assert "ok" in out.stdout
+
+
+def test_module_list_covers_the_ported_slice():
+    for m in ("engine.env", "ops.philox", "ops.step_kernel", "ops.game_kernel", "ops.act_rollout_kernel",
+              "ops.act_rollout_check", "utils.ops", "nets.mlp", "nets.convert", "buffers.ring",
+              "buffers.per", "agents.dqn", "runtime.vector", "ops._build"):
+        assert "rl6nimmt_torch." + m in MODULES
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (ROOT / "rl6nimmt_torch").rglob("*.py")))
+def test_no_source_imports_jax(path):
+    """No import statement (at any indentation, so lazy imports count too)."""
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|rl6nimmt_tpu)\b", re.M)
+    assert not bad.search((ROOT / path).read_text()), path
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
+    from rl6nimmt_torch.buffers import per_init, ring_init
+    from rl6nimmt_torch.engine import EnvConfig, deal
+    from rl6nimmt_torch.nets import mlp_init, noise_from_jax, params_from_jax
+    from rl6nimmt_torch.ops.game_kernel import (deal_decks_plain, deal_games, deal_games_plain,
+                                                play_random_games, play_random_games_plain,
+                                                random_pick_words)
+    from rl6nimmt_torch.runtime.vector import (dqn_replay_example, make_dqn_selfplay_step,
+                                               make_random_rollout, make_random_rollout_generations)
+
+    cfg = EnvConfig(4)
+    spec = q_network_spec(DQNConfig(hidden_sizes=(8,)), cfg.state_length, cfg.num_actions)
+    tree = {"trunk": [{"w": [[0.0]], "b": [0.0]}], "heads": []}
+    calls = [
+        lambda: make_random_rollout(cfg, 8),
+        lambda: make_random_rollout_generations(cfg, 8, 1),
+        lambda: make_dqn_selfplay_step(cfg, DQNConfig(), Adam(), 8),
+        lambda: deal(cfg, 0, 8),
+        lambda: deal_games(cfg, 0, 8),
+        lambda: play_random_games(cfg, 0, 8),
+        lambda: deal_decks_plain(cfg, 0, 8),
+        lambda: deal_games_plain(cfg, 0, 8),
+        lambda: play_random_games_plain(cfg, 0, 8),
+        lambda: random_pick_words(cfg, 0, 8),
+        lambda: per_init(16, dqn_replay_example(cfg)),
+        lambda: ring_init(16, dqn_replay_example(cfg)),
+        lambda: mlp_init(torch.Generator().manual_seed(0), spec),
+        lambda: params_from_jax(tree),
+        lambda: noise_from_jax([{"eps_in": [[0.0]], "eps_out": [[0.0]]}]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # Asking for the CPU works.
+    total, checksum = make_random_rollout_generations(cfg, 8, 1, device="cpu")(0)
+    assert total.shape == (8, 4) and float(checksum) > 0

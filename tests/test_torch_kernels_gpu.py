@@ -1,0 +1,118 @@
+"""K1-K4 on the card vs their plain twins (marked ``gpu``; skip without a card).
+
+Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
+"""
+
+import pytest
+import torch
+
+from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
+from rl6nimmt_torch.buffers import per_init
+from rl6nimmt_torch.engine import EnvConfig, deal, observe, step
+from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
+from rl6nimmt_torch.ops import _build
+from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
+from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
+from rl6nimmt_torch.ops.game_kernel import (
+    deal_games,
+    deal_games_plain,
+    play_random_games,
+    play_random_games_plain,
+)
+from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+from rl6nimmt_torch.runtime.vector import dqn_replay_example, make_dqn_selfplay_step
+
+pytestmark = pytest.mark.gpu
+
+FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
+                hidden_sizes=(64,), minibatch=64)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("num_players,G", [(4, 4096), (2, 1000), (6, 129)])
+def test_k1_resolve_turn_matches_twin(num_players, G):
+    dev = _cuda()
+    cfg = EnvConfig(num_players)
+    state = deal(cfg, 3, G, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(cfg.max_turns):
+        hs = state.hands_sorted
+        r = torch.floor(torch.rand(hs.shape[:2], generator=gen, device=dev) * (hs >= 0).sum(-1)).long()
+        acts = torch.gather(hs, -1, r[..., None]).squeeze(-1).contiguous()
+        out_k = resolve_turn(cfg, state.board, state.row_len, acts)
+        out_p = resolve_turn_plain(cfg, state.board, state.row_len, acts)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+        state, _ = step(cfg, state, acts)
+
+
+@pytest.mark.parametrize("num_players,G", [(4, 4096), (6, 333)])
+def test_k2_deal_matches_twin(num_players, G):
+    dev = _cuda()
+    cfg = EnvConfig(num_players)
+    for a, b in zip(deal_games(cfg, 2**40 + 5, G, device=dev), deal_games_plain(cfg, 2**40 + 5, G, dev)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_players,G,summaries", [(4, 4096, True), (3, 777, True), (4, 300, False)])
+def test_k3_random_games_match_twin(num_players, G, summaries):
+    dev = _cuda()
+    cfg = EnvConfig(num_players, include_summaries=summaries)
+    rk, ck = play_random_games(cfg, 11, G, device=dev)
+    rp, cp = play_random_games_plain(cfg, 11, G, dev)
+    assert torch.equal(rk, rp) and torch.equal(ck, cp)
+
+
+def _flagship_weights(dev, G=4096):
+    cfg, dqn = EnvConfig(4), DQNConfig(**FLAGSHIP)
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = mlp_init(gen, spec)
+    noise = draw_mlp_noise(spec, gen, batch=(cfg.max_turns,))
+    return cfg, dqn, spec, params, noise
+
+
+def test_k4_act_rollout_matches_twin():
+    dev = _cuda()
+    cfg, dqn, spec, params, noise = _flagship_weights(dev)
+    eff = turn_effective_weights(spec, params, noise)
+    args = (eff["trunk"][0]["w"], eff["trunk"][0]["b"], eff["heads"][1]["w"], eff["heads"][1]["b"])
+    G = 4096
+    ok, ak, rk = make_act_rollout_kernel(cfg, G, 64)(21, *args)
+    op, ap, rp = act_rollout_plain(cfg, 21, G, *args)
+    assert torch.equal(ok[0], op[0])                        # same deals
+    agree = (ak == ap).all(dim=(0, 2))                      # games whose actions all agree
+    assert (ak == ap).float().mean().item() >= 0.999
+    assert torch.equal(ok[:, agree], op[:, agree]) and torch.equal(rk[:, agree], rp[:, agree])
+
+
+def test_greedy_replay_agreement_on_card():
+    dev = _cuda()
+    cfg, dqn, spec, params, noise = _flagship_weights(dev)
+    action_agree, score_agree = greedy_replay_agreement(cfg, dqn, spec, params, 4096, 5, noise)
+    assert action_agree >= 0.999 and score_agree >= 0.999
+
+
+@pytest.mark.parametrize("kernel_act_rollout", [False, True])
+def test_flagship_cycle_runs_through_the_kernels(kernel_act_rollout):
+    dev = _cuda()
+    cfg, dqn, spec, params, _ = _flagship_weights(dev)
+    adam = Adam(1e-3)
+    buf = per_init(200_000, dqn_replay_example(cfg), device=dev)
+    cycle = make_dqn_selfplay_step(cfg, dqn, adam, 1024, learn_iters=8,
+                                   kernel_act_rollout=kernel_act_rollout, device=dev)
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, t, o, buf, m = cycle(params, params, adam.init(params), buf, gen, 0.0)
+    assert bool(torch.isfinite(m["loss"]))
+    used = ("act_rollout",) if kernel_act_rollout else ("deal_games", "resolve_turn")
+    for name in used:
+        assert _build.LAUNCHES[name] > 0
+    o0, _ = observe(cfg, deal(cfg, 1, 8, device=dev))
+    assert o0.shape == (8, 4, 47)

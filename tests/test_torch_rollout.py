@@ -1,0 +1,143 @@
+"""K3's and K4's plain twins vs JAX compositions on the same decks and picks."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rl6nimmt_tpu.agents.dqn import DQNConfig as JaxDQNConfig
+from rl6nimmt_tpu.agents.dqn import q_network_spec as jax_spec_of
+from rl6nimmt_tpu.agents.dqn import q_values as jax_q_values
+from rl6nimmt_tpu.engine import EnvConfig as JaxConfig
+from rl6nimmt_tpu.engine import env as jenv
+from rl6nimmt_tpu.nets import draw_mlp_noise, mlp_init, noisy_effective_params
+from rl6nimmt_torch.agents.dqn import DQNConfig, q_network_spec
+from rl6nimmt_torch.engine import EnvConfig
+from rl6nimmt_torch.nets import noise_from_jax, params_from_jax
+from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
+from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
+from rl6nimmt_torch.ops.game_kernel import (
+    deal_decks_plain,
+    play_random_games,
+    play_random_games_plain,
+    random_pick_words,
+)
+from rl6nimmt_torch.runtime.vector import make_random_rollout, make_random_rollout_generations
+
+G = 16
+FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
+                hidden_sizes=(64,), minibatch=64)
+
+
+def _jax_engine(jcfg):
+    return (jax.jit(jax.vmap(functools.partial(jenv.init_from_deck, jcfg))),
+            jax.jit(jax.vmap(functools.partial(jenv.step, jcfg))),
+            jax.jit(jax.vmap(functools.partial(jenv.observe, jcfg))))
+
+
+@pytest.mark.parametrize("num_players,include_summaries", [(2, True), (4, True), (6, True), (4, False)])
+def test_random_games_plain_matches_jax_composition(num_players, include_summaries):
+    cfg = EnvConfig(num_players, include_summaries=include_summaries)
+    jcfg = JaxConfig(num_players, include_summaries=include_summaries)
+    init_j, step_j, obs_j = _jax_engine(jcfg)
+    seed = 77 + num_players
+    decks = deal_decks_plain(cfg, seed, G, "cpu").numpy()
+    words = random_pick_words(cfg, seed, G, "cpu").numpy()
+    state = init_j(jnp.asarray(decks))
+    total = np.zeros((G, num_players), np.int64)
+    checksum = np.zeros(G, np.int64)
+    for t in range(cfg.max_turns):
+        obs, _ = obs_j(state)
+        checksum += np.asarray(obs).sum(axis=(1, 2)).astype(np.int64)
+        hs = np.asarray(state.hands_sorted)
+        r = (words[t] * (hs >= 0).sum(-1)) >> 32
+        actions = np.take_along_axis(hs, r[..., None], -1)[..., 0]
+        state, rew = step_j(state, jnp.asarray(actions, jnp.int32))
+        total += np.asarray(rew)
+    rewards, cs = play_random_games_plain(cfg, seed, G, "cpu")
+    np.testing.assert_array_equal(rewards.numpy(), total)
+    np.testing.assert_array_equal(cs.numpy(), checksum.astype(np.float32))
+    np.testing.assert_array_equal(total.sum(1), -np.asarray(state.scores).sum(1))
+
+
+def test_random_rollout_fused_and_engine_paths_agree():
+    """K3 (fused) and the engine path (K2 + K1) draw the same Philox words,
+    so one seed gives the same totals and checksums."""
+    cfg = EnvConfig(4)
+    fused = make_random_rollout_generations(cfg, G, 3, fused=True, device="cpu")(5)
+    engine = make_random_rollout_generations(cfg, G, 3, fused=False, device="cpu")(5)
+    assert torch.equal(fused[0], engine[0])
+    assert float(fused[1]) == float(engine[1])
+    state, total, checksum = make_random_rollout(cfg, G, device="cpu")(5)
+    r, cs = play_random_games(cfg, 5, G, device="cpu")
+    assert torch.equal(total, r) and float(checksum) == float(cs.double().sum())
+    assert torch.equal(-state.scores, total)
+
+
+def _flagship(num_players=4, key=0):
+    jcfg = JaxConfig(num_players)
+    jdqn = JaxDQNConfig(**FLAGSHIP)
+    jspec = jax_spec_of(jdqn, jcfg.state_length, jcfg.num_actions)
+    jparams = mlp_init(jax.random.key(key), jspec)
+    keys = jax.random.split(jax.random.key(key + 1), 10)
+    jnoise = jax.vmap(lambda k: draw_mlp_noise(jspec, k))(keys)
+    return jcfg, jdqn, jspec, jparams, jnoise
+
+
+@pytest.mark.parametrize("num_players", [2, 4])
+def test_act_rollout_plain_matches_jax_greedy_replay(num_players):
+    jcfg, jdqn, jspec, jparams, jnoise = _flagship(num_players)
+    cfg, dqn = EnvConfig(num_players), DQNConfig(**FLAGSHIP)
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    noise = noise_from_jax(jax.tree.map(np.asarray, jnoise), "cpu")
+    eff = turn_effective_weights(spec, params, noise)
+    seed = 31
+    obs, actions, rewards = act_rollout_plain(cfg, seed, G, eff["trunk"][0]["w"], eff["trunk"][0]["b"],
+                                              eff["heads"][1]["w"], eff["heads"][1]["b"])
+    # JAX: the XLA greedy act (full dueling Q, legal mask) on the same decks.
+    init_j, step_j, obs_j = _jax_engine(jcfg)
+    jeff = jax.vmap(lambda nz: noisy_effective_params(jspec, jparams, nz))(jnoise)
+    eff_spec = dataclasses.replace(jspec, noisy=False)
+    state = init_j(jnp.asarray(deal_decks_plain(cfg, seed, G, "cpu").numpy()))
+    j_actions, j_obs = [], []
+    for t in range(cfg.max_turns):
+        o, masks = obs_j(state)
+        j_obs.append(np.asarray(o))
+        q = jax_q_values(jdqn, eff_spec, jax.tree.map(lambda x: x[t], jeff), o)
+        a = jnp.argmax(jnp.where(masks, q, -1e9), axis=-1).astype(jnp.int32)
+        j_actions.append(np.asarray(a))
+        state, _ = step_j(state, a)
+    j_obs.append(np.asarray(obs_j(state)[0]))
+    j_actions = np.stack(j_actions)
+    agree = (j_actions == actions.numpy()).mean()
+    assert agree >= 0.999
+    same = (j_actions == actions.numpy()).all(axis=(0, 2))          # games that agree
+    np.testing.assert_array_equal(obs.numpy()[:, same], np.stack(j_obs)[:, same].astype(np.int8))
+    np.testing.assert_array_equal(rewards.numpy().sum(0)[same], -np.asarray(state.scores)[same])
+
+
+def test_act_rollout_entry_and_replay_check_on_cpu():
+    """The K4 entry point takes its plain twin on CPU weights, and the
+    port's greedy-replay protocol agrees on it."""
+    jcfg, jdqn, jspec, jparams, jnoise = _flagship(4, key=3)
+    cfg, dqn = EnvConfig(4), DQNConfig(**FLAGSHIP)
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    noise = noise_from_jax(jax.tree.map(np.asarray, jnoise), "cpu")
+    eff = turn_effective_weights(spec, params, noise)
+    play = make_act_rollout_kernel(cfg, G, hidden=64)
+    args = (eff["trunk"][0]["w"], eff["trunk"][0]["b"], eff["heads"][1]["w"], eff["heads"][1]["b"])
+    out = play(9, *args)
+    for x, y in zip(out, act_rollout_plain(cfg, 9, G, *args)):
+        assert torch.equal(x, y)
+    assert out[0].shape == (11, G, 4, 47) and out[0].dtype == torch.int8
+    # Every chosen action was in the acting seat's hand at that turn.
+    hands = out[0][:10, :, :, :10].long()
+    assert bool((hands == out[1][..., None].long()).any(-1).all())
+    action_agree, score_agree = greedy_replay_agreement(cfg, dqn, spec, params, G, 9, noise)
+    assert action_agree >= 0.999 and score_agree >= 0.999
