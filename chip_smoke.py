@@ -7,16 +7,21 @@ process per source), then:
 
 1. prints the card, its power limit, the torch/CUDA versions, the build time
    and ptxas registers/spills per kernel;
-2. holds K1-K4 against their plain PyTorch twins at the main path's shapes
+2. holds K1-K5 against their plain PyTorch twins at the main path's shapes
    (P=4, G=4096, hidden 64): K1-K3 bit-exact, K4 with exact deals, action
-   agreement >= 0.999 and equal observations/rewards in agreeing games;
-3. replays K4's games on the engine path (``greedy_replay_agreement``);
+   agreement >= 0.999 and equal observations/rewards in agreeing games; K5 at
+   capacity 204,800 and ptr 163,840 (tile regions wrap past the ring end) on
+   sentinel-filled planes, every written column equal to the twin's in
+   agreeing games, pad rows zero and the unwritten columns untouched;
+3. replays K4's games on the engine path (``greedy_replay_agreement``) and
+   holds K5's planes against K4's trajectory (``insert_planes_agreement``);
 4. drives the main path with every launch counter at 0: 3 random-rollout
    generations fused (K3) and on the engine path (K2 + K1), then 3 flagship
    Noisy-D3QN-PER-10step cycles (PER 200,000, 8 updates, Adam 1e-3) on the
-   engine path and 3 with ``kernel_act_rollout=True`` (K4); every kernel must
-   have launched; then two cycles from one state and one injected randomness
-   must agree bit for bit;
+   engine path, 3 with ``kernel_act_rollout=True`` (K4), 3 with
+   ``kernel_insert=True`` (K5, ``per_init_kd`` 204,800); each path must
+   launch exactly its kernels; then two cycles from one state and one
+   injected randomness must agree bit for bit, in every mode;
 5. times each kernel and its twin with CUDA events, and the rollouts and
    cycles in env-steps/s.
 
@@ -40,6 +45,8 @@ HIDDEN = 64
 CYCLES = 3
 GENERATIONS = 3
 PER_CAPACITY = 200_000
+KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
+KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
 LEARN_ITERS = 8
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
                 hidden_sizes=(HIDDEN,), minibatch=64)
@@ -137,12 +144,14 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_leaves
-    from rl6nimmt_torch.buffers import per_clone, per_init
+    from rl6nimmt_torch.buffers import per_clone, per_init, per_init_kd
     from rl6nimmt_torch.engine import EnvConfig, deal, step
     from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
     from rl6nimmt_torch.ops import _build
-    from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
-    from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
+    from rl6nimmt_torch.ops.act_rollout_check import (greedy_replay_agreement, insert_planes_agreement,
+                                                      insert_twin_agreement, turn_effective_weights)
+    from rl6nimmt_torch.ops.act_rollout_kernel import (S_PAD, SCAL_ROWS, act_insert_plain, act_rollout_plain,
+                                                       make_act_insert_kernel, make_act_rollout_kernel)
     from rl6nimmt_torch.ops.game_kernel import (deal_games, deal_games_plain, play_random_games,
                                                 play_random_games_plain)
     from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
@@ -208,18 +217,31 @@ def main():
     errs["act_rollout"] = max_abs_err([(ok[:, same], op[:, same]), (rk[:, same], rp[:, same])])
     log(f"[2] K1-K3 bit-exact vs twins at G={G}; K4 deals exact, action agreement {k4_agree:.6f}, "
         f"{int(same.sum())}/{G} games identical")
+    k5_agree, k5_games, errs["act_insert"] = insert_twin_agreement(cfg, G, HIDDEN, KD_CAPACITY, KD_PTR, 81, k4_args)
+    if k5_agree < 0.999 or errs["act_insert"] != 0.0:
+        raise AssertionError(f"K5 act_insert vs twin: action agreement {k5_agree}, error {errs['act_insert']}")
+    log(f"[2] K5 vs twin at G={G}, capacity {KD_CAPACITY}, ptr {KD_PTR}: action agreement {k5_agree:.6f}, "
+        f"{k5_games}/{G} games bit-exact in every plane; pad rows zero, unwritten columns untouched")
 
     # ------------------------------------------------------------ phase 3
     action_agree, score_agree = greedy_replay_agreement(cfg, dqn, spec, params, G, 80, turn_noise)
     if action_agree < 0.999 or score_agree < 0.999:
         raise AssertionError(f"greedy replay agreement {action_agree}, {score_agree}")
     log(f"[3] greedy_replay_agreement at G={G}: actions {action_agree:.6f}, scores {score_agree:.6f}")
+    reward_err = insert_planes_agreement(cfg, dqn, spec, params, G, KD_CAPACITY, 82, KD_PTR, turn_noise)
+    log(f"[3] insert_planes_agreement at G={G}: K5 planes == K4's n-step harvest, rewards within {reward_err:.3g}")
 
     # ------------------------------------------------------------ phase 4
     adam = Adam(1e-3)
-    cycles = {mode: make_dqn_selfplay_step(cfg, dqn, adam, G, learn_iters=LEARN_ITERS,
-                                           kernel_act_rollout=(mode == "kernel"), device=dev)
-              for mode in ("engine", "kernel")}
+    block = G * cfg.num_players * cfg.max_turns
+    options = {"engine": {}, "kernel": dict(kernel_act_rollout=True), "insert": dict(kernel_insert=True)}
+    cycles = {mode: make_dqn_selfplay_step(cfg, dqn, adam, G, learn_iters=LEARN_ITERS, device=dev, **kw)
+              for mode, kw in options.items()}
+    fresh_buffer = {
+        "engine": lambda: per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
+        "kernel": lambda: per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
+        "insert": lambda: per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev),
+    }
     rollouts = {mode: make_random_rollout_generations(cfg, G, GENERATIONS, fused=(mode == "fused"), device=dev)
                 for mode in ("fused", "engine")}
     train_state = {}
@@ -233,7 +255,7 @@ def main():
         per_unit[f"rollout_{mode}"] = {k: (v - before[k]) / GENERATIONS for k, v in _build.LAUNCHES.items()}
     for mode, cycle in cycles.items():
         p, tgt = params, {k: [{kk: vv.clone() for kk, vv in l.items()} for l in v] for k, v in params.items()}
-        o, buf = adam.init(params), per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev)
+        o, buf = adam.init(params), fresh_buffer[mode]()
         cgen = torch.Generator(device=dev).manual_seed(5)
         before = dict(_build.LAUNCHES)
         losses = []
@@ -243,11 +265,12 @@ def main():
         per_unit[f"cycle_{mode}"] = {k: (v - before[k]) / CYCLES for k, v in _build.LAUNCHES.items()}
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite loss in {mode} cycles: {losses}")
-        inserted = CYCLES * G * cfg.num_players * cfg.max_turns
-        if (buf.size, buf.ptr) != (min(inserted, PER_CAPACITY), inserted % PER_CAPACITY):
+        inserted = CYCLES * block
+        if (buf.size, buf.ptr) != (min(inserted, buf.capacity), inserted % buf.capacity):
             raise AssertionError(f"{mode} cycles left PER size {buf.size}, ptr {buf.ptr}")
         train_state[mode] = (p, tgt, o, buf)
-        log(f"[4] {CYCLES} flagship cycles ({mode} rollout): losses {losses}, mean score {float(m['mean_score'])}")
+        log(f"[4] {CYCLES} flagship cycles ({mode}): losses {losses}, mean score {float(m['mean_score'])}, "
+            f"PER size {buf.size}, ptr {buf.ptr}")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # ---- end of the main path ----
@@ -258,7 +281,8 @@ def main():
     # Each path launches exactly its own kernels, per generation or cycle.
     engine_path = {"deal_games": 1, "resolve_turn": cfg.max_turns}
     expected = {"rollout_engine": engine_path, "rollout_fused": {"play_random_games": 1},
-                "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1}}
+                "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1},
+                "cycle_insert": {"act_insert": 1}}
     for path, want in expected.items():
         got = {k: v for k, v in per_unit[path].items() if v}
         if got != want:
@@ -275,15 +299,21 @@ def main():
         runs = [cycle(p, tgt, o, per_clone(buf), rnd, 0.0, CYCLES * LEARN_ITERS) for _ in range(2)]
         (p1, _, _, b1, m1), (p2, _, _, b2, m2) = runs
         same = torch.equal(m1["loss"], m2["loss"]) and torch.equal(b1.priorities, b2.priorities) \
+            and all(torch.equal(b1.storage[k], b2.storage[k]) for k in b1.storage) \
             and all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
         if not same:
             raise AssertionError(f"determinism guard failed for the {mode} cycle")
-    log("[4] determinism guard: two cycles from one state and one randomness are bit-identical (both modes)")
+    log(f"[4] determinism guard: two cycles from one state and one randomness are bit-identical "
+        f"(modes {', '.join(cycles)})")
 
     # ------------------------------------------------------------ phase 5
     P, R, T, H, S, A = cfg.num_players, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.state_length, cfg.num_actions
     turns = cfg.max_turns
     k1_b, k1_l, k1_a = k1_inputs
+    insert = make_act_insert_kernel(cfg, G, HIDDEN, KD_CAPACITY, 0.99, dqn.n_steps)
+    k5_planes = (torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
+                 torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
+                 torch.zeros((SCAL_ROWS, KD_CAPACITY), dtype=torch.float32, device=dev))
     timing = {
         "resolve_turn": (lambda: resolve_turn(cfg, k1_b, k1_l, k1_a),
                          lambda: resolve_turn_plain(cfg, k1_b, k1_l, k1_a), 200, 20),
@@ -293,6 +323,8 @@ def main():
                               lambda: play_random_games_plain(cfg, 6, G, dev), 100, 3),
         "act_rollout": (lambda: play(7, *k4_args),
                         lambda: act_rollout_plain(cfg, 7, G, *k4_args), 20, 3),
+        "act_insert": (lambda: insert(7, KD_PTR, *k4_args, *k5_planes),
+                       lambda: act_insert_plain(cfg, 7, G, *k4_args, KD_PTR, *k5_planes, 0.99, dqn.n_steps), 20, 3),
     }
     # Bytes each kernel must move (inputs read once, outputs written once) and
     # the operations these inputs need.
@@ -303,10 +335,14 @@ def main():
     k3_bytes = 4 * G * (P + 1)
     k3_ops = G * (math.ceil((P * H + R + turns * P) / 4) * PHILOX_BLOCK_OPS + (P * H + R) * SWAP_OPS
                   + turns * (P * (SUBPLAY_OPS + H) + 4 * R))
-    k4_bytes = 4 * turns * (S * HIDDEN + HIDDEN + HIDDEN * A + A) + (turns + 1) * G * P * S + 2 * 4 * turns * G * P
+    weight_bytes = 4 * turns * (S * HIDDEN + HIDDEN + HIDDEN * A + A)
+    k4_bytes = weight_bytes + (turns + 1) * G * P * S + 2 * 4 * turns * G * P
     k4_flops = G * sum((S - H) * HIDDEN * 2 + P * H * HIDDEN * 2 + P * (H - t) * HIDDEN * 2 for t in range(turns))
+    # K5: the same play, then every transition's column of the three planes and the rewards out.
+    k5_bytes = weight_bytes + turns * P * G * (2 * S_PAD + 4 * SCAL_ROWS) + 4 * turns * P * G
     work = {"resolve_turn": (k1_bytes, k1_ops), "deal_games": (k2_bytes, k2_ops),
-            "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops)}
+            "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops),
+            "act_insert": (k5_bytes, k4_flops)}
     meta = {
         "resolve_turn": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
                          f"board i32[{G},{R},{T}], row_len i32[{G},{R}], actions i32[{G},{P}]"),
@@ -316,6 +352,9 @@ def main():
                               f"seed -> rewards i32[{G},{P}], checksum f32[{G}]"),
         "act_rollout": ("rl6nimmt_torch/csrc/act_rollout_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:232",
                         f"w1 f32[{turns},{S},{HIDDEN}], wa f32[{turns},{HIDDEN},{A}] -> obs i8[{turns + 1},{G},{P},{S}]"),
+        "act_insert": ("rl6nimmt_torch/csrc/act_insert_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:351",
+                       f"K4's weights, ptr {KD_PTR} -> planes i8[{S_PAD},{KD_CAPACITY}] x2, "
+                       f"f32[{SCAL_ROWS},{KD_CAPACITY}] in place, rewards i32[{turns * P},{G}]"),
     }
     rows = []
     for name, (kern, plain, it_k, it_p) in timing.items():

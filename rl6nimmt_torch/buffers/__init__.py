@@ -5,6 +5,8 @@ from .per import (
     per_add_batch,
     per_clone,
     per_init,
+    per_init_kd,
+    per_mark_batch,
     per_sample,
     per_update,
 )
@@ -17,6 +19,8 @@ __all__ = [
     "per_add_batch",
     "per_clone",
     "per_init",
+    "per_init_kd",
+    "per_mark_batch",
     "per_sample",
     "per_update",
     "ring_add_batch",

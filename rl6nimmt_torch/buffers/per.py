@@ -11,6 +11,12 @@ Differences from the JAX version, all in ``PARITY_TORCH.md``:
 * storage and priorities are updated **in place** (``index_copy_``); the
   functions still return a new :class:`PERState` carrying the advanced
   host-side ``ptr``/``size`` and the device-side ``beta``;
+* two storage layouts: row-major (:func:`per_init`, slot axis first) and the
+  direct-insert planes of :func:`per_init_kd` (slot axis last; pass
+  ``slot_axis=-1`` to :func:`per_sample`) that K5 writes itself, with
+  :func:`per_mark_batch` doing the bookkeeping.  The JAX package's
+  feature-major and aligned layouts, devices of the TPU's block writes, are
+  not ported;
 * :func:`per_sample` takes its uniforms ``u[n]`` as an argument (injected
   randomness), instead of a key;
 * :func:`per_update` resolves duplicate indices explicitly: the LAST
@@ -54,6 +60,10 @@ def per_init(capacity: int, example: Dict[str, torch.Tensor], device="cuda") -> 
     device = resolve_device(device)
     storage = {k: torch.zeros((capacity,) + tuple(v.shape), dtype=v.dtype, device=device)
                for k, v in example.items()}
+    return _empty_state(storage, capacity, device)
+
+
+def _empty_state(storage: Dict[str, torch.Tensor], capacity: int, device) -> PERState:
     return PERState(
         storage=storage,
         priorities=torch.zeros((capacity,), dtype=torch.float32, device=device),
@@ -63,10 +73,30 @@ def per_init(capacity: int, example: Dict[str, torch.Tensor], device="cuda") -> 
     )
 
 
+def per_init_kd(capacity: int, state_rows: int, scal_rows: int, device="cuda") -> PERState:
+    """PER buffer for the direct-insert kernel K5: three feature-major planes,
+    ``state``/``next_state`` int8 ``[state_rows, cap]`` and ``scalars`` f32
+    ``[scal_rows, cap]`` (row 0 = n-step reward, 1 = action, 2 = done).
+    K5 writes the planes; :func:`per_mark_batch` then marks the priorities."""
+    device = resolve_device(device)
+    storage = {
+        "state": torch.zeros((state_rows, capacity), dtype=torch.int8, device=device),
+        "next_state": torch.zeros((state_rows, capacity), dtype=torch.int8, device=device),
+        "scalars": torch.zeros((scal_rows, capacity), dtype=torch.float32, device=device),
+    }
+    return _empty_state(storage, capacity, device)
+
+
 def per_clone(state: PERState) -> PERState:
     """A deep copy (the in-place functions would otherwise share storage)."""
     return PERState({k: v.clone() for k, v in state.storage.items()},
                     state.priorities.clone(), state.ptr, state.size, state.beta.clone())
+
+
+def _insert_priority(state: PERState) -> torch.Tensor:
+    """The current max priority, 1.0 in an empty buffer (replay_buffer.py:150)."""
+    max_p = state.priorities.max()
+    return torch.where(max_p == 0.0, torch.ones_like(max_p) * ABS_ERROR_UPPER, max_p)
 
 
 def per_add_batch(state: PERState, items: Dict[str, torch.Tensor]) -> PERState:
@@ -75,12 +105,22 @@ def per_add_batch(state: PERState, items: Dict[str, torch.Tensor]) -> PERState:
     cap = state.capacity
     if n > cap:
         raise ValueError(f"batch of {n} transitions exceeds buffer capacity {cap}")
-    max_p = state.priorities.max()
-    priority = torch.where(max_p == 0.0, torch.ones_like(max_p) * ABS_ERROR_UPPER, max_p)
+    priority = _insert_priority(state)
     for k, buf in state.storage.items():
         circular_write(buf, items[k], state.ptr)
     circular_write(state.priorities, priority.expand(n), state.ptr)
     return PERState(state.storage, state.priorities, (state.ptr + n) % cap,
+                    min(state.size + n, cap), state.beta)
+
+
+def per_mark_batch(state: PERState, storage: Dict[str, torch.Tensor], n: int) -> PERState:
+    """Bookkeeping of an external batch write (K5): adopt ``storage``, give the
+    ``n`` slots at the ring pointer the max priority, advance ptr and size."""
+    cap = state.capacity
+    if n > cap:
+        raise ValueError(f"batch of {n} transitions exceeds buffer capacity {cap}")
+    circular_write(state.priorities, _insert_priority(state).expand(n), state.ptr)
+    return PERState(storage, state.priorities, (state.ptr + n) % cap,
                     min(state.size + n, cap), state.beta)
 
 
@@ -114,12 +154,14 @@ def _stratified_indices(pri: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return b * B + torch.clamp(j, max=B - 1)
 
 
-def per_sample(state: PERState, u: torch.Tensor, n: int
+def per_sample(state: PERState, u: torch.Tensor, n: int, slot_axis: int = 0
                ) -> Tuple[PERState, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Stratified priority sample from injected uniforms ``u[n]`` in [0, 1).
 
     Returns ``(state', indices, importance_weights, batch)``; ``state'`` only
-    differs in the annealed beta.
+    differs in the annealed beta.  ``slot_axis`` is 0 for :func:`per_init`
+    buffers and -1 for :func:`per_init_kd` ones (the batch then keeps the
+    minibatch axis last, e.g. ``state [S_PAD, n]``).
     """
     pri = state.priorities
     total = pri.sum()
@@ -133,7 +175,7 @@ def per_sample(state: PERState, u: torch.Tensor, n: int
     probs = pri[idx] / total
     min_prob = torch.where(pri > 0.0, pri, torch.full_like(pri, float("inf"))).min() / total
     weights = torch.pow(probs / min_prob, -beta)
-    batch = {k: buf[idx] for k, buf in state.storage.items()}
+    batch = {k: buf.index_select(slot_axis % buf.ndim, idx) for k, buf in state.storage.items()}
     return PERState(state.storage, pri, state.ptr, state.size, beta), idx, weights, batch
 
 

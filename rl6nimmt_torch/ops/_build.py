@@ -26,13 +26,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu")
-HEADERS = ("game.cuh",)
+SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu", "act_insert_kernel.cu")
+HEADERS = ("game.cuh", "act_play.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # Plain integer launch counters, one per kernel wrapper.
-LAUNCHES = {"resolve_turn": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0}
+LAUNCHES = {"resolve_turn": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0,
+            "act_insert": 0}
 
 # Filled by the first build in this process: seconds, and ptxas lines per kernel.
 BUILD_INFO: dict = {}
@@ -40,6 +41,8 @@ BUILD_INFO: dict = {}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_longlong
+_F = ctypes.c_float
 
 SIGNATURES = {
     "rl6_resolve_turn": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -47,6 +50,8 @@ SIGNATURES = {
     "rl6_play_random_games": [_U64, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_act_rollout": [_U64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "rl6_act_insert": [_U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, _I, _I, _VP],
 }
 
 

@@ -1,4 +1,4 @@
-"""K4: whole greedy noisy-DQN games (port of ``ops/act_rollout_kernel.py``).
+"""K4 and K5: whole greedy noisy-DQN games (port of ``ops/act_rollout_kernel.py``).
 
 ``make_act_rollout_kernel(cfg, num_games, hidden)`` returns ``play(seed, w1
 [T,S,Hd], b1 [T,Hd], wa [T,Hd,A], ba [T,A]) -> (obs int8 [T+1,G,P,S],
@@ -13,6 +13,17 @@ legal-masked row.
 On CUDA weights it launches ``csrc/act_rollout_kernel.cu``; on CPU weights it
 runs :func:`act_rollout_plain`.  Row-major layout only (the TPU's
 ``feature_major`` layout was a lane-layout device).
+
+``make_act_insert_kernel(cfg, num_games, hidden, capacity, gamma, n_steps,
+reward_lag)`` returns ``insert(seed, ptr, w1, b1, wa, ba, state, next, scal)
+-> (state, next, scal, rewards int32 [T*P, G])``: K4's games, whose finished
+n-step transitions (lagged discounted returns, terminal bootstrap
+observation, done tail; ``n_steps >= max_turns``) are written IN PLACE into
+the :func:`..buffers.per.per_init_kd` planes -- int8 ``state``/``next``
+``[S_PAD, cap]`` and f32 ``scal [SCAL_ROWS, cap]`` -- at the columns of
+:func:`insert_columns`.  On CUDA tensors it launches
+``csrc/act_insert_kernel.cu``, which shares K4's play loop
+(``csrc/act_play.cuh``); on CPU tensors it runs :func:`act_insert_plain`.
 """
 
 from __future__ import annotations
@@ -48,27 +59,37 @@ def act_rollout_plain(cfg: EnvConfig, seed: int, num_games: int, w1, b1, wa, ba)
     return torch.stack(obs_all), torch.stack(actions_all), torch.stack(rewards_all)
 
 
-def _check_weights(cfg: EnvConfig, hidden: int, w1, b1, wa, ba):
-    T, S, A = cfg.max_turns, cfg.state_length, cfg.num_actions
-    for name, x, shape in (("w1", w1, (T, S, hidden)), ("b1", b1, (T, hidden)),
-                           ("wa", wa, (T, hidden, A)), ("ba", ba, (T, A))):
+def _check_tensors(kernel: str, device, specs):
+    """Raise unless each ``(name, tensor, shape, dtype)`` matches and lies on ``device``."""
+    for name, x, shape, dtype in specs:
         if tuple(x.shape) != shape:
-            raise ValueError(f"act_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"act_rollout: {name} must be float32, got {x.dtype}")
+            raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, expected {shape}")
+        if x.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"act_rollout: {name} must be contiguous")
-        if x.device != w1.device:
-            raise ValueError("act_rollout: all weights must be on one device")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if x.device != device:
+            raise ValueError(f"{kernel}: every tensor must be on {device}, {name} is on {x.device}")
+
+
+def _weight_specs(cfg: EnvConfig, hidden: int, w1, b1, wa, ba):
+    T, S, A = cfg.max_turns, cfg.state_length, cfg.num_actions
+    f32 = torch.float32
+    return [("w1", w1, (T, S, hidden), f32), ("b1", b1, (T, hidden), f32),
+            ("wa", wa, (T, hidden, A), f32), ("ba", ba, (T, A), f32)]
+
+
+def _check_kernel_cfg(cfg: EnvConfig, hidden: int):
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f"act kernels support hidden <= {MAX_HIDDEN}")
+    if cfg.num_cards > 127:
+        raise ValueError("int8 observations need card ids below 128")
+    _check_cfg(cfg)
 
 
 def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
     """Build ``play(seed, w1, b1, wa, ba)`` for ``num_games`` games (any G)."""
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f"act_rollout kernel supports hidden <= {MAX_HIDDEN}")
-    if cfg.num_cards > 127:
-        raise ValueError("int8 observations need card ids below 128")
-    _check_cfg(cfg)
+    _check_kernel_cfg(cfg, hidden)
     G, P, S = num_games, cfg.num_players, cfg.state_length
     n_turns = cfg.max_turns
 
@@ -78,7 +99,7 @@ def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
             return act_rollout_plain(cfg, seed, G, w1, b1, wa, ba)
         if w1.device.type != "cuda":
             raise ValueError(f"act_rollout: unsupported device {w1.device}")
-        _check_weights(cfg, hidden, w1, b1, wa, ba)
+        _check_tensors("act_rollout", w1.device, _weight_specs(cfg, hidden, w1, b1, wa, ba))
         dev = w1.device
         obs = torch.empty((n_turns + 1, G, P, S), dtype=torch.int8, device=dev)
         actions = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
@@ -96,3 +117,113 @@ def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
         return obs, actions, rewards
 
     return play
+
+
+# ----------------------------------------------------- K5: direct replay insert
+
+S_PAD = 48      # state rows of the int8 planes; rows S..S_PAD-1 stay zero
+SCAL_ROWS = 8   # f32 scalar plane rows: 0 = n-step reward, 1 = action, 2 = done, rest zero
+TILE = 128      # games per CUDA block (rl6::THREADS): the unit of the column map
+MAX_TP = 128    # turns x players of one game that K5 keeps in the thread
+
+
+def insert_columns(cfg: EnvConfig, num_games: int, capacity: int, ptr: int, device) -> torch.Tensor:
+    """``int64[T, P, G]``: the plane column K5 writes transition ``(t, p, g)`` to.
+
+    Tile ``i = g // TILE`` owns the tile blocks from ``base_i = (ptr // TILE +
+    i*T*P) % (capacity // TILE)``; game ``g`` writes column ``(base_i + t*P +
+    p) * TILE + g % TILE``: one tile's columns run in ``(t, p, g)`` order.
+    """
+    T, P = cfg.max_turns, cfg.num_players
+    g = torch.arange(num_games, device=device)
+    tp = torch.arange(T * P, device=device).reshape(T, P, 1)
+    blk = (ptr // TILE + (g // TILE) * T * P + tp) % (capacity // TILE)
+    return blk * TILE + g % TILE
+
+
+def act_insert_plain(cfg: EnvConfig, seed: int, num_games: int, w1, b1, wa, ba, ptr: int,
+                     state, nxt, scal, gamma: float, n_steps: int, reward_lag: bool = True):
+    """Plain twin of K5: K4's twin plays the games, the same f32 reverse
+    recursion ``acc = r' + gamma * acc`` gives the returns (one rounded
+    multiply, then one rounded add, as K5's ``__fmul_rn``/``__fadd_rn``), and
+    the transitions are written in place at :func:`insert_columns`."""
+    T, P, S, G = cfg.max_turns, cfg.num_players, cfg.state_length, num_games
+    dev = state.device
+    obs, actions, rewards = act_rollout_plain(cfg, seed, G, w1, b1, wa, ba)
+    cols = insert_columns(cfg, G, state.shape[1], ptr, dev).reshape(-1)
+    st = torch.zeros((state.shape[0], T, P, G), dtype=torch.int8, device=dev)
+    st[:S] = obs[:T].permute(3, 0, 2, 1)
+    nx = torch.zeros_like(st)
+    nx[:S] = obs[T].permute(2, 1, 0)[:, None]
+    rew = rewards.permute(0, 2, 1).to(torch.float32)                    # [T, P, G]
+    g32 = torch.tensor(gamma, dtype=torch.float32, device=dev)
+    acc = torch.zeros((P, G), dtype=torch.float32, device=dev)
+    sc = torch.zeros((scal.shape[0], T, P, G), dtype=torch.float32, device=dev)
+    for t in range(T - 1, -1, -1):
+        if reward_lag:
+            r = rew[t - 1] if t > 0 else torch.zeros_like(acc)
+        else:
+            r = rew[t]
+        acc = r + g32 * acc
+        sc[0, t] = acc
+    tail_start = (T - n_steps + 1) if n_steps > 1 else (T - 1)
+    sc[1] = actions.permute(0, 2, 1).to(torch.float32)
+    sc[2] = (torch.arange(T, device=dev) >= tail_start).to(torch.float32)[:, None, None]
+    state.index_copy_(1, cols, st.reshape(state.shape[0], -1))
+    nxt.index_copy_(1, cols, nx.reshape(nxt.shape[0], -1))
+    scal.index_copy_(1, cols, sc.reshape(scal.shape[0], -1))
+    return state, nxt, scal, rewards.permute(0, 2, 1).reshape(T * P, G).contiguous()
+
+
+def make_act_insert_kernel(cfg: EnvConfig, num_games: int, hidden: int, capacity: int,
+                           gamma: float, n_steps: int, reward_lag: bool = True):
+    """Build ``insert(seed, ptr, w1, b1, wa, ba, state, next, scal)`` (see the
+    module docstring).  Requires ``num_games % TILE == 0``, ``n_steps >=
+    cfg.max_turns``, ``capacity % (T*P*TILE) == 0`` and ``T*P*num_games <=
+    capacity``; ``ptr`` must be a
+    multiple of ``T*P*TILE`` in ``[0, capacity)``, which every insert of
+    ``T*P*G`` transitions from ``ptr = 0`` keeps."""
+    _check_kernel_cfg(cfg, hidden)
+    T, P, S, G = cfg.max_turns, cfg.num_players, cfg.state_length, num_games
+    region = T * P * TILE
+    if G % TILE:
+        raise ValueError(f"num_games={G} must be a multiple of {TILE} (one CUDA block of games)")
+    if n_steps < T:
+        raise ValueError("direct-insert kernel requires n_steps >= max_turns")
+    if capacity <= 0 or capacity % region:
+        raise ValueError(f"capacity={capacity} must be a positive multiple of T*P*TILE={region}")
+    if G * T * P > capacity:
+        # Two CUDA blocks would own the same columns and race on them.
+        raise ValueError(f"capacity={capacity} is below one insert of T*P*num_games={G * T * P}")
+    if S > S_PAD or T * P > MAX_TP:
+        raise ValueError(f"direct-insert kernel needs state_length <= {S_PAD} and T*P <= {MAX_TP}")
+
+    def insert(seed, ptr, w1, b1, wa, ba, state, nxt, scal):
+        seed, ptr = _check_seed(seed), int(ptr)
+        if not 0 <= ptr < capacity or ptr % region:
+            raise ValueError(f"ptr={ptr} must be a multiple of T*P*TILE={region} in [0, {capacity})")
+        dev = w1.device
+        _check_tensors("act_insert", dev, _weight_specs(cfg, hidden, w1, b1, wa, ba) + [
+            ("state", state, (S_PAD, capacity), torch.int8),
+            ("next", nxt, (S_PAD, capacity), torch.int8),
+            ("scal", scal, (SCAL_ROWS, capacity), torch.float32)])
+        if dev.type == "cpu":
+            return act_insert_plain(cfg, seed, G, w1, b1, wa, ba, ptr, state, nxt, scal,
+                                    gamma, n_steps, reward_lag)
+        if dev.type != "cuda":
+            raise ValueError(f"act_insert: unsupported device {dev}")
+        rewards = torch.empty((T * P, G), dtype=torch.int32, device=dev)
+        if G == 0:
+            return state, nxt, scal, rewards
+        code = _build.library().rl6_act_insert(
+            seed, ptr, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+            state.data_ptr(), nxt.data_ptr(), scal.data_ptr(), rewards.data_ptr(),
+            G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards, hidden, T,
+            int(cfg.include_summaries), capacity, S_PAD, SCAL_ROWS, gamma, n_steps,
+            int(reward_lag), _build.stream_ptr(dev),
+        )
+        _build.check(code, "act_insert")
+        _build.LAUNCHES["act_insert"] += 1
+        return state, nxt, scal, rewards
+
+    return insert

@@ -10,7 +10,8 @@
   cycle: greedy noisy acting (or eps-greedy for non-noisy configs), the
   lagged n-step harvest, a PER (or ring) insert, and ``learn_iters``
   double/dueling Bellman updates.  ``kernel_act_rollout=True`` plays the
-  games in K4.
+  games in K4; ``kernel_insert=True`` plays the games AND writes the
+  transitions into the replay planes in K5.
 
 PyTorch runs eagerly: the make_* functions return plain Python closures.  The cycle
 takes its randomness either from a ``torch.Generator`` or injected as a
@@ -27,12 +28,13 @@ import torch
 from torch.profiler import record_function
 
 from ..agents.dqn import Adam, DQNConfig, learn_noise, make_learn_step, q_network_spec, q_values
-from ..buffers.per import per_add_batch, per_sample, per_update
+from ..buffers.per import per_add_batch, per_mark_batch, per_sample, per_update
 from ..buffers.ring import ring_add_batch, ring_sample
 from ..engine.env import deal, init_from_deck, observe, step
 from ..engine.state import EnvConfig
 from ..nets import draw_mlp_noise, noisy_effective_params
 from ..ops.act_rollout_check import turn_slice
+from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_rollout_kernel
 from ..ops.game_kernel import play_random_games, random_pick_words, random_picks
 from ..utils.device import resolve_device
 from ..utils.ops import onehot_select, uniform_index
@@ -117,12 +119,42 @@ def dqn_replay_example(cfg: EnvConfig, compact: bool = True) -> dict:
     }
 
 
+def to_transitions(cfg: EnvConfig, gamma: float, n_steps: int, reward_lag: bool,
+                   obs, actions, rewards, next_obs) -> dict:
+    """n-step transitions from ``[T, G, P, ...]`` trajectories, flattened in
+    (t, g, p) order (reference dqn.py:264-301: truncated discounted sums,
+    terminal bootstrap, the flushed tail marked done)."""
+    T, n = cfg.max_turns, n_steps
+    if reward_lag:
+        rewards = lag_rewards(rewards)
+    padded = torch.cat([rewards, rewards.new_zeros((n - 1,) + rewards.shape[1:])]) if n > 1 else rewards
+    disc = torch.tensor([gamma ** i for i in range(n)], dtype=rewards.dtype, device=rewards.device)
+    R = sum(disc[i] * padded[i: i + T] for i in range(n))
+    if n >= T:
+        next_states = next_obs[T - 1][None].expand_as(next_obs)
+    elif n > 1:
+        idx_next = torch.clamp(torch.arange(T, device=obs.device) + n, max=T)
+        next_states = next_obs[idx_next - 1]
+    else:
+        next_states = next_obs
+    tail_start = (T - n + 1) if n > 1 else (T - 1)
+    done = (torch.arange(T, device=obs.device) >= tail_start)[:, None, None].expand(rewards.shape)
+    flat = lambda x: x.reshape((-1,) + tuple(x.shape[3:]))
+    return {
+        "state": flat(obs),
+        "action": flat(actions),
+        "reward": flat(R.to(torch.float32)),
+        "next_state": flat(next_states),
+        "done": flat(done.to(torch.float32)),
+    }
+
+
 @dataclass
 class CycleRandomness:
     """Everything random one cycle consumes.
 
     * ``decks`` ``int[G, C]`` (engine path; dealt with ``init_from_deck``) or
-      ``deal_seed`` (engine path through K2, or the K4 path);
+      ``deal_seed`` (engine path through K2, or the K4 and K5 paths);
     * ``turn_noise``: per-layer ``{"eps_in" [T,in,1], "eps_out" [T,1,out]}``
       (noisy configs);
     * ``learn_noise``: one :func:`agents.dqn.learn_noise` pair per update
@@ -181,20 +213,44 @@ def make_dqn_selfplay_step(
 
     ``cycle(params, target_params, opt_state, buf, rng, eps, step0=0) ->
     (params, target_params, opt_state, buf, metrics)`` where ``rng`` is a
-    ``torch.Generator`` or a :class:`CycleRandomness`.  ``buf`` is a
-    ``PERState`` (PER configs) or ``RingState`` and is updated in place.
+    ``torch.Generator`` or a :class:`CycleRandomness`.  ``buf`` is updated in
+    place; which buffer it must be depends on the options:
+
+    * ``per_init`` (PER configs) or ``ring_init``: row-major, slots in
+      (t, g, p) order;
+    * ``per_init_kd(cap, S_PAD, SCAL_ROWS)`` with ``kernel_insert=True``: K5
+      plays the games from ``deal_seed`` and writes the finished transitions
+      into the planes itself (noisy PER configs with one hidden layer,
+      ``n_steps >= max_turns``, ``num_games`` a multiple of 128, ``cap`` a
+      multiple of ``T*P*128`` and at least ``T*P*num_games``); slot order
+      (128-game tile, t, p, g) -- the same multiset of transitions per cycle
+      as row-major, in another slot order.
 
     ``kernel_act_rollout=True`` (noisy configs with one hidden layer) plays
     the games in K4 from ``deal_seed``; the engine path otherwise.
+    ``feature_major`` and ``per_aligned_capacity`` (the JAX package's TPU
+    replay layouts) and ``axis_name`` are not ported.
     """
-    if feature_major:
-        raise NotImplementedError("feature_major replay: ROADMAP queue 1 item 4 (per_init_fm planes)")
-    if per_aligned_capacity is not None:
-        raise NotImplementedError("per_aligned_capacity: ROADMAP queue 1 item 4 (per_init_aligned)")
-    if kernel_insert:
-        raise NotImplementedError("kernel_insert: ROADMAP queue 2 K5 (_act_insert_kernel)")
+    T, P, G = cfg.max_turns, cfg.num_players, num_games
+    n = dqn_cfg.n_steps
     if axis_name is not None:
         raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
+    if feature_major or per_aligned_capacity is not None:
+        raise NotImplementedError("feature_major / per_aligned_capacity: TPU replay layouts "
+                                  "with no GPU workload, see ROADMAP queue 1 item 1")
+    if kernel_insert:
+        if not dqn_cfg.per:
+            raise ValueError("kernel_insert requires a PER config (per_init_kd storage)")
+        if not dqn_cfg.noisy:
+            raise ValueError("kernel_insert requires a noisy config (greedy act)")
+        if len(dqn_cfg.hidden_sizes) != 1:
+            raise ValueError("kernel_insert supports one hidden layer")
+        if n < T:
+            raise ValueError("kernel_insert requires n_steps >= max_turns")
+        if kernel_act_rollout:
+            raise ValueError("kernel_insert subsumes kernel_act_rollout; pass kernel_insert alone")
+        if G % TILE != 0:
+            raise ValueError(f"kernel_insert requires num_games % {TILE} == 0 (got {G})")
     if kernel_act_rollout:
         if not dqn_cfg.noisy:
             raise ValueError("kernel_act_rollout requires a noisy config (greedy act)")
@@ -205,14 +261,8 @@ def make_dqn_selfplay_step(
     spec = q_network_spec(dqn_cfg, cfg.state_length, cfg.num_actions)
     eff_spec = dataclasses.replace(spec, noisy=False)
     learn_step = make_learn_step(dqn_cfg, spec, optimizer, gamma)
-    T, P, G = cfg.max_turns, cfg.num_players, num_games
-    n = dqn_cfg.n_steps
     adv_head = 1 if dqn_cfg.dueling else 0
-    play_kernel = None
-    if kernel_act_rollout:
-        from ..ops.act_rollout_kernel import make_act_rollout_kernel
-
-        play_kernel = make_act_rollout_kernel(cfg, G, hidden=dqn_cfg.hidden_sizes[0])
+    play_kernel = make_act_rollout_kernel(cfg, G, hidden=dqn_cfg.hidden_sizes[0]) if kernel_act_rollout else None
 
     def initial_state(rnd: CycleRandomness):
         if rnd.decks is not None:
@@ -247,59 +297,46 @@ def make_dqn_selfplay_step(
         next_obs = torch.cat([obs[1:], final_obs.to(store_dtype)[None]], dim=0)
         return obs, torch.stack(act_l), torch.stack(rew_l), next_obs, -state.scores
 
-    def rollout_kernel(params, rnd: CycleRandomness, store_dtype):
+    def act_weights(params, rnd: CycleRandomness):
+        """K4/K5's arguments: this cycle's per-turn effective weights of the
+        hidden layer and the advantage head."""
         eff = noisy_effective_params(spec, params, rnd.turn_noise)
-        obs_all, actions, rewards_i = play_kernel(
-            rnd.deal_seed,
-            eff["trunk"][0]["w"].contiguous(), eff["trunk"][0]["b"].contiguous(),
-            eff["heads"][adv_head]["w"].contiguous(), eff["heads"][adv_head]["b"].contiguous(),
-        )
+        return (eff["trunk"][0]["w"].contiguous(), eff["trunk"][0]["b"].contiguous(),
+                eff["heads"][adv_head]["w"].contiguous(), eff["heads"][adv_head]["b"].contiguous())
+
+    def rollout_kernel(params, rnd: CycleRandomness, store_dtype):
+        obs_all, actions, rewards_i = play_kernel(rnd.deal_seed, *act_weights(params, rnd))
         obs = obs_all[:T].to(store_dtype)
         next_obs = obs_all[1:].to(store_dtype)
         return obs, actions, rewards_i.to(torch.float32), next_obs, rewards_i.sum(dim=0)
 
-    def to_transitions(obs, actions, rewards, next_obs):
-        """n-step transitions from ``[T, G, P, ...]`` trajectories (reference
-        dqn.py:264-301: truncated discounted sums, terminal bootstrap, the
-        flushed tail marked done)."""
-        if reward_lag:
-            rewards = lag_rewards(rewards)
-        padded = torch.cat([rewards, rewards.new_zeros((n - 1,) + rewards.shape[1:])]) if n > 1 else rewards
-        disc = torch.tensor([gamma ** i for i in range(n)], dtype=rewards.dtype, device=rewards.device)
-        R = sum(disc[i] * padded[i: i + T] for i in range(n))
-        if n >= T:
-            next_states = next_obs[T - 1][None].expand_as(next_obs)
-        elif n > 1:
-            idx_next = torch.clamp(torch.arange(T, device=obs.device) + n, max=T)
-            next_states = next_obs[idx_next - 1]
-        else:
-            next_states = next_obs
-        tail_start = (T - n + 1) if n > 1 else (T - 1)
-        done = (torch.arange(T, device=obs.device) >= tail_start)[:, None, None].expand(rewards.shape)
-        flat = lambda x: x.reshape((T * G * P,) + tuple(x.shape[3:]))
-        return {
-            "state": flat(obs),
-            "action": flat(actions),
-            "reward": flat(R.to(torch.float32)),
-            "next_state": flat(next_states),
-            "done": flat(done.to(torch.float32)),
-        }
-
     def learn_once(carry, t: int, u, noise):
         params, target_params, opt_state, buf = carry
         if dqn_cfg.per:
-            buf, idx, weights, batch = per_sample(buf, u, dqn_cfg.minibatch)
+            buf, idx, weights, batch = per_sample(buf, u, dqn_cfg.minibatch,
+                                                  slot_axis=-1 if kernel_insert else 0)
         else:
             idx, batch = ring_sample(buf, u)
             weights = torch.ones(dqn_cfg.minibatch, dtype=torch.float32, device=dev)
-        batch = {
-            "state": batch["state"].to(torch.float32),
-            "action": batch["action"].to(torch.int64),
-            "reward": batch["reward"].to(torch.float32),
-            "next_state": batch["next_state"].to(torch.float32),
-            "done": batch["done"].to(torch.float32),
-            "weights": weights,
-        }
+        if kernel_insert:
+            # kd planes: [S_PAD, n] int8 states, f32 rows reward/action/done.
+            S = cfg.state_length
+            batch = {
+                "state": batch["state"][:S].to(torch.float32).T,
+                "action": batch["scalars"][1].to(torch.int64),
+                "reward": batch["scalars"][0],
+                "next_state": batch["next_state"][:S].to(torch.float32).T,
+                "done": batch["scalars"][2],
+            }
+        else:
+            batch = {
+                "state": batch["state"].to(torch.float32),
+                "action": batch["action"].to(torch.int64),
+                "reward": batch["reward"].to(torch.float32),
+                "next_state": batch["next_state"].to(torch.float32),
+                "done": batch["done"].to(torch.float32),
+            }
+        batch["weights"] = weights
         do_soft = (t % dqn_cfg.retrain_interval) == 0
         params, target_params, opt_state, loss, abs_err, _ = learn_step(
             params, target_params, opt_state, batch, do_soft,
@@ -309,19 +346,36 @@ def make_dqn_selfplay_step(
             buf = per_update(buf, idx, abs_err)
         return (params, target_params, opt_state, buf), loss
 
-    def cycle(params, target_params, opt_state, buf, rng, eps, step0: int = 0):
-        rnd = rng if isinstance(rng, CycleRandomness) else \
-            draw_cycle_randomness(cfg, dqn_cfg, G, learn_iters, rng)
+    def play_and_insert(params, rnd: CycleRandomness, buf, eps):
+        """Rollout and replay insert of one cycle; returns ``(buf, scores)``."""
+        if kernel_insert:
+            with record_function("cycle.rollout"):
+                st = buf.storage
+                insert = make_act_insert_kernel(cfg, G, dqn_cfg.hidden_sizes[0], buf.capacity,
+                                                gamma, n, reward_lag)
+                planes = insert(
+                    rnd.deal_seed, buf.ptr, *act_weights(params, rnd),
+                    st["state"], st["next_state"], st["scalars"])
+            with record_function("cycle.insert"):
+                buf = per_mark_batch(buf, dict(zip(("state", "next_state", "scalars"), planes[:3])),
+                                     T * G * P)
+            return buf, planes[3].reshape(T, P, G).to(torch.float32).sum(dim=0)
         store_dtype = buf.storage["state"].dtype
-        # The three spans name the cycle's phases in a torch.profiler trace.
         with record_function("cycle.rollout"):
             if kernel_act_rollout:
                 obs, actions, rewards, next_obs, scores = rollout_kernel(params, rnd, store_dtype)
             else:
                 obs, actions, rewards, next_obs, scores = rollout(params, rnd, eps, store_dtype)
         with record_function("cycle.insert"):
-            transitions = to_transitions(obs, actions, rewards, next_obs)
+            transitions = to_transitions(cfg, gamma, n, reward_lag, obs, actions, rewards, next_obs)
             buf = per_add_batch(buf, transitions) if dqn_cfg.per else ring_add_batch(buf, transitions)
+        return buf, scores
+
+    def cycle(params, target_params, opt_state, buf, rng, eps, step0: int = 0):
+        rnd = rng if isinstance(rng, CycleRandomness) else \
+            draw_cycle_randomness(cfg, dqn_cfg, G, learn_iters, rng)
+        # The three spans name the cycle's phases in a torch.profiler trace.
+        buf, scores = play_and_insert(params, rnd, buf, eps)
         carry = (params, target_params, opt_state, buf)
         losses = []
         with record_function("cycle.learn"):

@@ -137,3 +137,65 @@ def test_ring_add_and_sample():
     idx, batch = tring.ring_sample(ts, torch.tensor([0.0, 0.5, 0.999]))
     assert idx.tolist() == [0, 4, 7]
     assert torch.equal(batch["state"], ts.storage["state"][idx])
+
+
+# ------------------------------------------------------------- the kd layout
+
+
+def _j(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def test_per_kd_sample_matches_jax():
+    """kd planes sampled with the slot axis last (slot_axis=-1) after two
+    marks: same indices, weights allclose, batches [rows, n] equal, and
+    per_update bit-exact."""
+    cap = 256
+    rng = np.random.RandomState(4)
+    planes = {"state": rng.randint(-1, 100, size=(48, cap)).astype(np.int8),
+              "next_state": rng.randint(-1, 100, size=(48, cap)).astype(np.int8),
+              "scalars": rng.randn(8, cap).astype(np.float32)}
+    js = jper.per_init_kd(cap, 48, 8)._replace(storage=_j(planes))
+    ts = tper.per_mark_batch(tper.per_init_kd(cap, 48, 8, device="cpu"), _t(planes), 100)
+    js = jper.per_mark_batch(js, js.storage, 100)
+    js = jper.per_mark_batch(js, js.storage, 100)
+    ts = tper.per_mark_batch(ts, ts.storage, 100)
+    key = jax.random.key(8)
+    for it in range(3):
+        key, sk = jax.random.split(key)
+        u = np.asarray(jax.random.uniform(sk, (16,)))
+        js, jidx, jw, jbatch = jper.per_sample(js, sk, 16, slot_axis=-1)
+        ts, tidx, tw, tbatch = tper.per_sample(ts, torch.tensor(u), 16, slot_axis=-1)
+        np.testing.assert_array_equal(np.asarray(jidx), tidx.numpy(), err_msg=f"round {it}")
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=RTOL, atol=ATOL)
+        assert tuple(tbatch["state"].shape) == (48, 16)
+        for k in jbatch:
+            np.testing.assert_array_equal(np.asarray(jbatch[k]), tbatch[k].numpy())
+        err = rng.randn(16).astype(np.float32)
+        js = jper.per_update(js, jidx, jnp.asarray(err))
+        ts = tper.per_update(ts, tidx, torch.tensor(err))
+        _assert_same(js, ts)
+
+
+def test_per_kd_mark_batch_matches_jax():
+    """kd planes: same shapes and dtypes; per_mark_batch's priorities, ptr and
+    size bit-exact through wraps, with the same learned priorities written
+    into both buffers between marks."""
+    cap, n = 64, 24
+    js = jper.per_init_kd(cap, 48, 8)
+    ts = tper.per_init_kd(cap, 48, 8, device="cpu")
+    for k in js.storage:
+        assert tuple(ts.storage[k].shape) == js.storage[k].shape
+        assert str(ts.storage[k].dtype).split(".")[-1] == str(js.storage[k].dtype)
+    rng = np.random.RandomState(2)
+    for r in range(4):
+        js = jper.per_mark_batch(js, js.storage, n)
+        ts = tper.per_mark_batch(ts, ts.storage, n)
+        np.testing.assert_array_equal(ts.priorities.numpy(), np.asarray(js.priorities))
+        assert (ts.ptr, ts.size) == (int(js.ptr), int(js.size))
+        pri = np.asarray(js.priorities).copy()
+        pri[rng.randint(0, ts.size, size=6)] = rng.rand(6).astype(np.float32) * (r + 1)
+        js = js._replace(priorities=jnp.asarray(pri))
+        ts.priorities.copy_(torch.tensor(pri))
+    with pytest.raises(ValueError):
+        tper.per_mark_batch(ts, ts.storage, cap + 1)

@@ -20,6 +20,7 @@ from rl6nimmt_tpu.nets import draw_mlp_noise as jax_draw_noise
 from rl6nimmt_tpu.nets import mlp_init as jax_mlp_init
 from rl6nimmt_tpu.runtime import vector as jvec
 from rl6nimmt_torch.agents import dqn as tdqn
+from rl6nimmt_torch.buffers import per as tper
 from rl6nimmt_torch.buffers import per_init
 from rl6nimmt_torch.engine import EnvConfig
 from rl6nimmt_torch.nets import noise_from_jax, params_from_jax, params_to_numpy
@@ -212,7 +213,108 @@ def test_cycle_is_deterministic_given_randomness(flags, kernel_act_rollout):
 
 def test_unported_options_raise():
     cfg, td = EnvConfig(4), tdqn.DQNConfig(**FLAGSHIP)
-    for kw in ({"feature_major": True}, {"kernel_insert": True},
-               {"per_aligned_capacity": 100}, {"axis_name": "d"}):
+    for kw in ({"feature_major": True}, {"per_aligned_capacity": 100}, {"axis_name": "d"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tvec.make_dqn_selfplay_step(cfg, td, tdqn.Adam(), G, device="cpu", **kw)
+
+
+KD_G = 128                       # one 128-game tile: K5's columns run in (t, p, g) order
+KD_CAP = 2 * 10 * 4 * KD_G       # two cycles fill it; the second insert lands at ptr 5120
+
+
+def test_kernel_insert_cycle_matches_k4_cycle(monkeypatch):
+    """K5's path (twin on the CPU) equals the row-major cycle on K4 (twin)
+    given the same randomness, under the column map (t, p, g) <-> (t, g, p):
+    planes bit-exact against the row-major storage (rewards allclose:
+    recursion vs windowed sum), the same inserted priorities and first sampled
+    indices, then loss, priorities and params allclose.
+
+    The row-major run samples through ``perm`` (kd slot -> row-major slot):
+    it draws from its priorities in kd slot order and maps the drawn slots
+    back, so both learners see the same transitions in the same order."""
+    from rl6nimmt_torch.buffers import PERState
+    from rl6nimmt_torch.nets import mlp_init
+    from rl6nimmt_torch.ops.act_rollout_check import column_order
+    from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS
+
+    cfg, td = EnvConfig(4), tdqn.DQNConfig(**FLAGSHIP)
+    T, P = cfg.max_turns, cfg.num_players
+    spec = tdqn.q_network_spec(td, 47, 104)
+    params = mlp_init(torch.Generator().manual_seed(3), spec, device="cpu")
+    adam = tdqn.Adam(1e-3)
+    kd = tvec.make_dqn_selfplay_step(cfg, td, adam, KD_G, learn_iters=ITERS, kernel_insert=True,
+                                     device="cpu")
+    rm = tvec.make_dqn_selfplay_step(cfg, td, adam, KD_G, learn_iters=ITERS, kernel_act_rollout=True,
+                                     device="cpu")
+    perm = torch.arange(KD_CAP).reshape(2, T, KD_G, P).permute(0, 1, 3, 2).reshape(-1)
+    sampled = []
+    per_sample = tvec.per_sample
+
+    def recording_sample(buf, u, n, slot_axis=0):
+        if slot_axis == -1:                                   # kd
+            out = per_sample(buf, u, n, slot_axis=-1)
+            sampled.append((out[1].clone(), buf.priorities.clone()))
+            return out
+        kd_view = PERState(buf.storage, buf.priorities[perm], buf.ptr, buf.size, buf.beta)
+        view, idx, weights, _ = per_sample(kd_view, u, n)
+        sampled.append((idx.clone(), kd_view.priorities.clone()))
+        rm_idx = perm[idx]
+        batch = {k: v[rm_idx] for k, v in buf.storage.items()}
+        return PERState(buf.storage, buf.priorities, buf.ptr, buf.size, view.beta), rm_idx, weights, batch
+
+    monkeypatch.setattr(tvec, "per_sample", recording_sample)
+    buffers = {"kd": tper.per_init_kd(KD_CAP, S_PAD, SCAL_ROWS, device="cpu"),
+               "rm": per_init(KD_CAP, tvec.dqn_replay_example(cfg), device="cpu")}
+    states = {name: [params, params, adam.init(params), buf] for name, buf in buffers.items()}
+    gen = torch.Generator().manual_seed(4)
+    for c in range(2):
+        rnd = tvec.draw_cycle_randomness(cfg, td, KD_G, ITERS, gen)
+        metrics, first = {}, {}
+        for name, cycle in (("kd", kd), ("rm", rm)):
+            sampled.clear()
+            *states[name], metrics[name] = cycle(*states[name], rnd, 0.0, c * ITERS)
+            first[name] = sampled[0]      # (kd-order indices, priorities) of the first update
+        assert torch.equal(first["kd"][0], first["rm"][0]), f"first sampled indices, cycle {c}"
+        kbuf, rbuf = states["kd"][3], states["rm"][3]
+        if c == 0:   # fresh buffer: every inserted priority is exactly 1
+            assert torch.equal(first["kd"][1], first["rm"][1])
+        planes = kbuf.storage
+        want = {k: column_order(v, 2 * T, KD_G, P).reshape(v.shape[1:] + (KD_CAP,))
+                for k, v in rbuf.storage.items()}               # row-major slots in kd column order
+        assert torch.equal(planes["state"][:47], want["state"])
+        assert torch.equal(planes["next_state"][:47], want["next_state"])
+        assert bool((planes["state"][47:] == 0).all() and (planes["next_state"][47:] == 0).all())
+        assert torch.equal(planes["scalars"][1], want["action"].float())
+        assert torch.equal(planes["scalars"][2], want["done"].float())
+        assert_f32_close(planes["scalars"][0].numpy(), want["reward"].numpy(), f"reward {c}")
+        inserted = (c + 1) * KD_CAP // 2
+        assert (kbuf.ptr, kbuf.size) == (rbuf.ptr, rbuf.size) == (inserted % KD_CAP, inserted)
+        assert float(metrics["kd"]["mean_score"]) == float(metrics["rm"]["mean_score"])
+        assert_f32_close(metrics["kd"]["loss"].numpy(), metrics["rm"]["loss"].numpy(), f"loss {c}")
+        live = rbuf.storage["state"][rbuf.priorities > 0].float()
+        q_scale = max(1.0, float(tdqn.q_values(td, spec, states["rm"][0], live).abs().max()))
+        np.testing.assert_allclose(kbuf.priorities.numpy(), rbuf.priorities[perm].numpy(),
+                                   rtol=RTOL, atol=3.8 * 2 * ATOL * q_scale, err_msg=f"priorities {c}")
+        for a, b in zip(tdqn.tree_leaves(states["kd"][0]), tdqn.tree_leaves(states["rm"][0])):
+            assert_f32_close(a.numpy(), b.numpy(), f"params {c}")
+
+
+VALIDATION = {
+    "short_n_steps": (dict(n_steps=3), dict(kernel_insert=True), "n_steps"),
+    "with_kernel_act_rollout": ({}, dict(kernel_insert=True, kernel_act_rollout=True), "subsumes"),
+    "not_per": (dict(per=False), dict(kernel_insert=True), "PER"),
+    "not_noisy": (dict(noisy=False), dict(kernel_insert=True), "noisy"),
+    "two_hidden_layers": (dict(hidden_sizes=(64, 64)), dict(kernel_insert=True), "one hidden layer"),
+    "games_not_a_tile_multiple": ({}, dict(kernel_insert=True, num_games=100), "num_games"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VALIDATION))
+def test_kernel_insert_validation(case):
+    """Config validation of the K5 path (JAX tests/test_act_rollout.py:273-287)."""
+    overrides, options, match = VALIDATION[case]
+    td = tdqn.DQNConfig(**dict(FLAGSHIP, **overrides))
+    options = dict(options)
+    num_games = options.pop("num_games", KD_G)
+    with pytest.raises(ValueError, match=match):
+        tvec.make_dqn_selfplay_step(EnvConfig(4), td, tdqn.Adam(), num_games, device="cpu", **options)

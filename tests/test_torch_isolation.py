@@ -54,7 +54,7 @@ def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
-    from rl6nimmt_torch.buffers import per_init, ring_init
+    from rl6nimmt_torch.buffers import per_init, per_init_kd, ring_init
     from rl6nimmt_torch.engine import EnvConfig, deal
     from rl6nimmt_torch.nets import mlp_init, noise_from_jax, params_from_jax
     from rl6nimmt_torch.ops.game_kernel import (deal_decks_plain, deal_games, deal_games_plain,
@@ -78,6 +78,7 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: play_random_games_plain(cfg, 0, 8),
         lambda: random_pick_words(cfg, 0, 8),
         lambda: per_init(16, dqn_replay_example(cfg)),
+        lambda: per_init_kd(5120, 48, 8),
         lambda: ring_init(16, dqn_replay_example(cfg)),
         lambda: mlp_init(torch.Generator().manual_seed(0), spec),
         lambda: params_from_jax(tree),

@@ -1,4 +1,4 @@
-"""K1-K4 on the card vs their plain twins (marked ``gpu``; skip without a card).
+"""K1-K5 on the card vs their plain twins (marked ``gpu``; skip without a card).
 
 Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
 """
@@ -7,12 +7,17 @@ import pytest
 import torch
 
 from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
-from rl6nimmt_torch.buffers import per_init
+from rl6nimmt_torch.buffers import per_init, per_init_kd
 from rl6nimmt_torch.engine import EnvConfig, deal, observe, step
 from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
 from rl6nimmt_torch.ops import _build
-from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
-from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
+from rl6nimmt_torch.ops.act_rollout_check import (
+    greedy_replay_agreement,
+    insert_planes_agreement,
+    insert_twin_agreement,
+    turn_effective_weights,
+)
+from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS, act_rollout_plain, make_act_rollout_kernel
 from rl6nimmt_torch.ops.game_kernel import (
     deal_games,
     deal_games_plain,
@@ -116,3 +121,36 @@ def test_flagship_cycle_runs_through_the_kernels(kernel_act_rollout):
         assert _build.LAUNCHES[name] > 0
     o0, _ = observe(cfg, deal(cfg, 1, 8, device=dev))
     assert o0.shape == (8, 4, 47)
+
+
+def test_k5_act_insert_matches_twin():
+    """Flagship shapes with a ptr whose tile regions wrap past the ring end."""
+    dev = _cuda()
+    cfg, dqn, spec, params, noise = _flagship_weights(dev)
+    eff = turn_effective_weights(spec, params, noise)
+    args = tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
+                                          eff["heads"][1]["w"], eff["heads"][1]["b"]))
+    agree, games, err = insert_twin_agreement(cfg, 4096, 64, 204_800, 163_840, 31, args)
+    assert agree >= 0.999 and games >= 4096 * 0.99 and err == 0.0
+
+
+def test_insert_planes_agreement_on_card():
+    dev = _cuda()
+    cfg, dqn, spec, params, noise = _flagship_weights(dev)
+    assert insert_planes_agreement(cfg, dqn, spec, params, 4096, 204_800, 9, 163_840, noise) <= 1e-3
+
+
+def test_kernel_insert_cycle_runs_through_k5():
+    dev = _cuda()
+    cfg, dqn, spec, params, _ = _flagship_weights(dev)
+    adam = Adam(1e-3)
+    buf = per_init_kd(204_800, S_PAD, SCAL_ROWS, device=dev)
+    cycle = make_dqn_selfplay_step(cfg, dqn, adam, 1024, learn_iters=8, kernel_insert=True, device=dev)
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, t, o = params, params, adam.init(params)
+    for _ in range(2):
+        p, t, o, buf, m = cycle(p, t, o, buf, gen, 0.0)
+        assert bool(torch.isfinite(m["loss"]))
+    assert _build.LAUNCHES["act_insert"] == 2
+    assert (buf.ptr, buf.size) == (2 * 40 * 1024, 2 * 40 * 1024)

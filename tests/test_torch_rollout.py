@@ -1,4 +1,5 @@
-"""K3's and K4's plain twins vs JAX compositions on the same decks and picks."""
+"""K3's and K4's plain twins vs JAX compositions on the same decks and picks,
+and K5's twin vs the n-step harvest of K4's twin."""
 
 import dataclasses
 import functools
@@ -18,7 +19,11 @@ from rl6nimmt_tpu.nets import draw_mlp_noise, mlp_init, noisy_effective_params
 from rl6nimmt_torch.agents.dqn import DQNConfig, q_network_spec
 from rl6nimmt_torch.engine import EnvConfig
 from rl6nimmt_torch.nets import noise_from_jax, params_from_jax
-from rl6nimmt_torch.ops.act_rollout_check import greedy_replay_agreement, turn_effective_weights
+from rl6nimmt_torch.ops.act_rollout_check import (
+    greedy_replay_agreement,
+    insert_planes_agreement,
+    turn_effective_weights,
+)
 from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_plain, make_act_rollout_kernel
 from rl6nimmt_torch.ops.game_kernel import (
     deal_decks_plain,
@@ -141,3 +146,92 @@ def test_act_rollout_entry_and_replay_check_on_cpu():
     assert bool((hands == out[1][..., None].long()).any(-1).all())
     action_agree, score_agree = greedy_replay_agreement(cfg, dqn, spec, params, G, 9, noise)
     assert action_agree >= 0.999 and score_agree >= 0.999
+
+
+# ------------------------------------------------------------------ K5 (twin)
+
+KD_G, KD_CAP, KD_PTR = 256, 3 * 5120, 2 * 5120   # two tiles; tile 1 wraps to block 0
+
+
+def _k5_args(key=5):
+    jcfg, jdqn, jspec, jparams, jnoise = _flagship(4, key=key)
+    cfg, dqn = EnvConfig(4), DQNConfig(**FLAGSHIP)
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    noise = noise_from_jax(jax.tree.map(np.asarray, jnoise), "cpu")
+    eff = turn_effective_weights(spec, params, noise)
+    args = (eff["trunk"][0]["w"], eff["trunk"][0]["b"], eff["heads"][1]["w"], eff["heads"][1]["b"])
+    return cfg, dqn, spec, params, noise, args
+
+
+@pytest.mark.parametrize("reward_lag,n_steps", [(True, 10), (False, 12)])
+def test_act_insert_plain_matches_harvest(reward_lag, n_steps):
+    """K5's twin at two tiles with a wrapping ptr equals, column for column,
+    the n-step harvest (``to_transitions``) of K4's twin's trajectory; pad
+    rows are zero and the columns it does not own keep their contents."""
+    from rl6nimmt_torch.ops.act_rollout_check import column_order
+    from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS, TILE, make_act_insert_kernel
+    from rl6nimmt_torch.runtime.vector import to_transitions
+
+    cfg, _, _, _, _, args = _k5_args()
+    T, P, S, seed = cfg.max_turns, cfg.num_players, cfg.state_length, 17
+    st = torch.full((S_PAD, KD_CAP), 5, dtype=torch.int8)
+    nx = torch.full((S_PAD, KD_CAP), 6, dtype=torch.int8)
+    sc = torch.full((SCAL_ROWS, KD_CAP), 7.0)
+    insert = make_act_insert_kernel(cfg, KD_G, 64, KD_CAP, 0.99, n_steps, reward_lag)
+    out = insert(seed, KD_PTR, *args, st, nx, sc)
+    assert out[0] is st and out[1] is nx and out[2] is sc                 # in place
+    obs, actions, rewards = act_rollout_plain(cfg, seed, KD_G, *args)
+    np.testing.assert_array_equal(out[3].numpy(), rewards.permute(0, 2, 1).reshape(T * P, KD_G).numpy())
+    rm = to_transitions(cfg, 0.99, n_steps, reward_lag, obs[:T], actions, rewards.float(), obs[1:])
+    want = {k: column_order(v, T, KD_G, P) for k, v in rm.items()}     # [..., T, P, G]
+    written = np.zeros(KD_CAP, bool)
+    for tile in range(KD_G // TILE):                   # the column map, written out
+        base = (KD_PTR // TILE + tile * T * P) % (KD_CAP // TILE)
+        gs = slice(tile * TILE, (tile + 1) * TILE)
+        for t in range(T):
+            for p in range(P):
+                cols = slice((base + t * P + p) * TILE, (base + t * P + p + 1) * TILE)
+                written[cols] = True
+                np.testing.assert_array_equal(st[:S, cols].numpy(), want["state"][:, t, p, gs].numpy())
+                np.testing.assert_array_equal(nx[:S, cols].numpy(), want["next_state"][:, t, p, gs].numpy())
+                np.testing.assert_array_equal(sc[1, cols].numpy(), want["action"][t, p, gs].float().numpy())
+                np.testing.assert_array_equal(sc[2, cols].numpy(), want["done"][t, p, gs].numpy())
+                np.testing.assert_allclose(sc[0, cols].numpy(), want["reward"][t, p, gs].numpy(),
+                                           rtol=1e-6, atol=1e-5)
+    assert written.sum() == T * P * KD_G and not written[5120:10240].any()
+    assert bool((st[S:, written] == 0).all() and (nx[S:, written] == 0).all() and (sc[3:, written] == 0).all())
+    assert bool((st[:, ~written] == 5).all() and (nx[:, ~written] == 6).all() and (sc[:, ~written] == 7).all())
+
+
+def test_insert_planes_agreement_on_cpu():
+    """The K5-vs-K4 protocol runs through the twins on CPU tensors."""
+    cfg, dqn, spec, params, noise, _ = _k5_args(key=7)
+    err = insert_planes_agreement(cfg, dqn, spec, params, KD_G, KD_CAP, 23, KD_PTR, noise)
+    assert 0.0 <= err <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["capacity", "capacity_below_one_insert", "ptr", "num_games",
+                                  "n_steps", "planes"])
+def test_act_insert_kernel_validation(case):
+    from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS, make_act_insert_kernel
+
+    cfg, _, _, _, _, args = _k5_args()
+    bad = {"capacity": (dict(capacity=200_000), "capacity"),
+           "num_games": (dict(num_games=100), "num_games"),
+           "n_steps": (dict(n_steps=3), "n_steps"),
+           # 512 games own 4 tiles of 5120 columns: two would share a block of a 15360 ring
+           "capacity_below_one_insert": (dict(num_games=512), "below one insert")}
+    if case in bad:
+        kw = dict(dict(num_games=KD_G, capacity=KD_CAP, n_steps=10), **bad[case][0])
+        with pytest.raises(ValueError, match=bad[case][1]):
+            make_act_insert_kernel(cfg, kw["num_games"], 64, kw["capacity"], 0.99, kw["n_steps"])
+        return
+    insert = make_act_insert_kernel(cfg, KD_G, 64, KD_CAP, 0.99, 10)
+    planes = [torch.zeros((S_PAD, KD_CAP), dtype=torch.int8), torch.zeros((S_PAD, KD_CAP), dtype=torch.int8),
+              torch.zeros((SCAL_ROWS, KD_CAP))]
+    ptr = 128 if case == "ptr" else 0                  # not a multiple of T*P*128
+    if case == "planes":
+        planes[2] = planes[2].double()
+    with pytest.raises((ValueError, TypeError), match="ptr" if case == "ptr" else "scal"):
+        insert(1, ptr, *args, *planes)
