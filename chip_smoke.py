@@ -23,7 +23,16 @@ process per source), then:
    launch exactly its kernels; then two cycles from one state and one
    injected randomness must agree bit for bit, in every mode;
 5. times each kernel and its twin with CUDA events, and the rollouts and
-   cycles in env-steps/s.
+   cycles in env-steps/s;
+6. drives the ablation and probe path with every launch counter at 0: the
+   act-rollout ablation's entry point (``env``, ``obs``, ``mm`` on K6,
+   ``full`` on K4; chains of ABLATE_CHAIN generations) and the probe entry
+   point (K7's seven bodies, each against its twin); then holds K6 ``env``
+   and ``obs`` bit-exact to their twins, ``env`` to K3 on the same seed and
+   ``mm`` at action agreement >= 0.999, and prints the attribution of K4's
+   time: each variant's ms per generation, ms per launch at G=4096 and at
+   G=16,384 (128 blocks, one per SM), its bound and its ptxas line; and each
+   probe's ms beside the one PyTorch call that computes the same function.
 
 Prints one JSON line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
@@ -48,6 +57,8 @@ PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
 LEARN_ITERS = 8
+ABLATE_CHAIN = 32          # generations per timed ablation chain (the JAX script chained 256)
+ABLATE_G_WIDE = 16_384     # 128 blocks of 128 games: one block per SM of the H100
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
                 hidden_sizes=(HIDDEN,), minibatch=64)
 
@@ -275,14 +286,14 @@ def main():
     launches = dict(_build.LAUNCHES)
     # ---- end of the main path ----
     log(f"[4] main-path launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     # Each path launches exactly its own kernels, per generation or cycle.
     engine_path = {"deal_games": 1, "resolve_turn": cfg.max_turns}
     expected = {"rollout_engine": engine_path, "rollout_fused": {"play_random_games": 1},
                 "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1},
                 "cycle_insert": {"act_insert": 1}}
+    missing = sorted({k for want in expected.values() for k in want if launches[k] == 0})
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
     for path, want in expected.items():
         got = {k: v for k, v in per_unit[path].items() if v}
         if got != want:
@@ -386,6 +397,104 @@ def main():
         p, tgt, o, buf = train_state[mode]
         cgen = torch.Generator(device=dev).manual_seed(12)
         log(json.dumps(profile_cycle(lambda: cycle(p, tgt, o, buf, cgen, 0.0), mode)))
+
+    # ------------------------------------------------------------ phase 6
+    from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
+    from rl6nimmt_torch.experiments import probe_ops as probe_exp
+    from rl6nimmt_torch.ops.act_ablate_kernel import (VARIANTS, ablate_twin_agreement, act_ablate_plain,
+                                                      make_act_ablate_kernel)
+
+    acfg = ablate.config()
+    aw = ablate.weights(acfg, dev)
+    chains = {v: ablate.build(v, device=dev, games=G, chain=ABLATE_CHAIN) for v in VARIANTS}
+    _build.reset_launches()
+    # ---- the ablation and probe path: every counter starts at 0 here ----
+    checksums = {v: int(chains[v](ablate.SEED)) for v in VARIANTS}
+    log("[6] probes (K7) against their twins, through the probe entry point:")
+    probe_results = {r["probe"]: r for r in probe_exp.run(device=dev)}
+    torch.cuda.synchronize()
+    path_launches = dict(_build.LAUNCHES)
+    # ---- end of the ablation and probe path ----
+    log(f"[6] ablation and probe path launches: { {k: v for k, v in path_launches.items() if v} }")
+    want = {**{f"act_ablate_{v}": ABLATE_CHAIN for v in _build.ABLATE_VARIANTS}, "act_rollout": ABLATE_CHAIN,
+            **{f"probe_{k}": 1 for k in _build.PROBES}}
+    if {k: v for k, v in path_launches.items() if v} != want:
+        raise AssertionError(f"the ablation and probe path launched {path_launches}, expected {want}")
+    failed = [k for k, r in probe_results.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"K7 probes differ from their twins: {failed}")
+    log(f"[6] ablation checksums over {ABLATE_CHAIN} generations from seed {ablate.SEED}: {checksums}")
+
+    for v in _build.ABLATE_VARIANTS:
+        agree, games, errs[f"act_ablate_{v}"] = ablate_twin_agreement(acfg, v, G, ablate.HID, 91, aw)
+        if agree < 0.999 or (v != "mm" and games != G):
+            raise AssertionError(f"K6 {v} vs twin: action agreement {agree}, {games}/{G} games identical")
+        log(f"[6] K6 {v} vs twin at G={G}: action agreement {agree:.6f}, {games}/{G} games identical"
+            + (", deals exact" if v != "env" else ""))
+    k3_rewards, _ = play_random_games(acfg, 91, G, device=dev)
+    env_rewards = make_act_ablate_kernel(acfg, G, ablate.HID, "env")(91, *aw)[2]
+    if not torch.equal(env_rewards.sum(dim=0), k3_rewards):
+        raise AssertionError("K6 env's games differ from K3's on the same seed")
+    log(f"[6] K6 env's per-game reward sums == K3 (play_random_games) on seed 91, {G} games")
+
+    # Bounds per variant at g games (3.35 TB/s, 67 TFLOP/s f32, integer work at the f32 rate).
+    def ablate_work(v, g):
+        act_rew = 2 * 4 * turns * g * P
+        obs = (turns + 1) * g * P * S
+        if v == "env":
+            return act_rew, k3_ops / G * g
+        if v == "obs":
+            return act_rew + obs, k3_ops / G * g
+        if v == "mm":
+            return weight_bytes + obs + act_rew, g * turns * ((S - H) * HIDDEN * 2 + P * (H + A) * HIDDEN * 2)
+        return weight_bytes + (k4_bytes - weight_bytes) / G * g, k4_flops / G * g
+
+    ptxas = _build.BUILD_INFO.get("ptxas", {})
+    for v in VARIANTS:
+        kname = "act_rollout" if v == "full" else f"act_ablate_{v}"
+        ms_gen = ablate.timeit(chains[v], iters=5, chain=ABLATE_CHAIN)
+        per_launch, bounds = {}, {}
+        for g in (G, ABLATE_G_WIDE):
+            play_v = make_act_ablate_kernel(acfg, g, ablate.HID, v)
+            per_launch[g] = cuda_ms(lambda: play_v(7, *aw), 20)
+            bounds[g] = bound_ms(*ablate_work(v, g))
+        log(json.dumps({"ablation": v, "kernel": kname, "ms_per_generation": ms_gen,
+                        "ms_per_launch": {str(g): x for g, x in per_launch.items()},
+                        "bound_ms": {str(g): b[0] for g, b in bounds.items()}, "bound_by": bounds[G][1],
+                        "ptxas": ptxas.get(kname + "_kernel", "n/a"), "card": card}))
+        if v == "full":
+            continue
+        plain_ms = cuda_ms(lambda: act_ablate_plain(acfg, v, 7, G, *aw), 3)
+        rows.append({"name": kname, "route": "cuda", "source": "rl6nimmt_torch/csrc/act_ablate_kernel.cu",
+                     "replaces": "experiments/act_rollout_ablate.py:47", "launches": path_launches[kname],
+                     "main_path_launches": launches[kname], "max_abs_err": errs[kname], "ms": per_launch[G],
+                     "plain_ms": plain_ms, "bound_ms": bounds[G][0], "bound_by": bounds[G][1],
+                     "library_ms": None})
+
+    inp = probe_exp.probe_inputs(dev)
+    library = {"k1": lambda: inp["C"].t() @ inp["W1"], "k2": lambda: inp["hands"].t().contiguous(),
+               "k3": lambda: torch.argmax(inp["H"], dim=1), "k4": lambda: inp["flat"].reshape(8, 128).clone(),
+               "k5": lambda: inp["S"].permute(1, 2, 0).reshape(1024, 47),
+               "k6": lambda: torch.einsum("fsl,fh->slh", inp["S2"], inp["W1b"]), "k7": None}
+    body_line = {"k1": 53, "k2": 66, "k3": 75, "k4": 85, "k5": 96, "k6": 118, "k7": 134}
+    for key, label, kernel, twin, args, exact in probe_exp.probes(inp):
+        out = kernel(*args)
+        nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a)) \
+            + out.numel() * out.element_size()
+        # f32 multiply-adds of the dots, compares of the argmaxes; the copies have none
+        ops = (2 * args[0].numel() * args[1].shape[-1] if key in ("k1", "k6", "k7")
+               else args[0].numel() if key == "k3" else 0)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        ms = cuda_ms(lambda: kernel(*args), 200)
+        plain_ms = cuda_ms(lambda: twin(*args), 50)
+        lib_ms = cuda_ms(library[key], 200) if library[key] else None
+        log(json.dumps({"probe": key, "label": label, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bytes": nbytes, "ptxas": ptxas.get(f"probe_{key}_kernel", "n/a")}))
+        rows.append({"name": f"probe_{key}", "route": "cuda", "source": "rl6nimmt_torch/csrc/probe_ops.cu",
+                     "replaces": f"experiments/probe_pallas_ops.py:{body_line[key]}",
+                     "launches": path_launches[f"probe_{key}"], "main_path_launches": launches[f"probe_{key}"],
+                     "max_abs_err": probe_results[key]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -12,38 +12,21 @@
 //
 // Design: the play loop is act_play.cuh's play_greedy_games, shared with K5
 // (act_insert_kernel.cu), so a redesign of the loop moves both kernels.  K4's
-// emitter writes each observation, action and reward as it is produced:
-// obs [T+1, G, P, S] int8, actions and rewards [T, G, P] int32.
+// emitter (row_major_emit.cuh, shared with K6) writes each observation, action
+// and reward as it is produced: obs [T+1, G, P, S] int8, actions and rewards
+// [T, G, P] int32.
 #include <cuda_runtime.h>
 
 #include "act_play.cuh"
+#include "row_major_emit.cuh"
 
 namespace {
-
-struct RowMajorEmit {
-  int8_t* obs_out;
-  int* act_out;
-  int* rew_out;
-  int g, G, P, H, S;
-
-  __device__ void obs(int t, const int* hands, const int* feat) {
-    for (int p = 0; p < P; ++p) {
-      int8_t* o = obs_out + (((size_t)t * G + g) * P + p) * S;
-      for (int i = 0; i < H; ++i) o[i] = (int8_t)hands[p * H + i];
-      for (int f = 0; f < S - H; ++f) o[H + f] = (int8_t)feat[f];
-    }
-  }
-  __device__ void action(int t, int p, int card) { act_out[((size_t)t * G + g) * P + p] = card; }
-  __device__ void rewards(int t, const int* rew) {
-    for (int p = 0; p < P; ++p) rew_out[((size_t)t * G + g) * P + p] = rew[p];
-  }
-};
 
 __global__ void act_rollout_kernel(rl6::PlayArgs a, int8_t* __restrict__ obs_out,
                                    int* __restrict__ act_out, int* __restrict__ rew_out) {
   extern __shared__ float smem[];
-  RowMajorEmit emit{obs_out, act_out, rew_out, (int)(blockIdx.x * blockDim.x + threadIdx.x),
-                    a.G, a.c.P, a.c.H, a.S};
+  rl6::RowMajorEmit emit{obs_out, act_out, rew_out,
+                         (int)(blockIdx.x * blockDim.x + threadIdx.x), a.G, a.c.P, a.c.H, a.S};
   rl6::play_greedy_games(a, smem, emit);
 }
 

@@ -26,14 +26,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu", "act_insert_kernel.cu")
-HEADERS = ("game.cuh", "act_play.cuh")
+SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu", "act_insert_kernel.cu",
+           "act_ablate_kernel.cu", "probe_ops.cu")
+HEADERS = ("game.cuh", "act_play.cuh", "row_major_emit.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# Plain integer launch counters, one per kernel wrapper.
+# Plain integer launch counters, one per kernel: K1-K5 (the main path), K6's
+# three ablation variants and K7's seven probe bodies.
+ABLATE_VARIANTS = ("env", "obs", "mm")      # in the order of rl6_act_ablate's variant codes 0-2
+PROBES = tuple(f"k{i}" for i in range(1, 8))
 LAUNCHES = {"resolve_turn": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0,
-            "act_insert": 0}
+            "act_insert": 0, **{f"act_ablate_{v}": 0 for v in ABLATE_VARIANTS},
+            **{f"probe_{k}": 0 for k in PROBES}}
 
 # Filled by the first build in this process: seconds, and ptxas lines per kernel.
 BUILD_INFO: dict = {}
@@ -52,6 +57,15 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_act_insert": [_U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, _I, _I, _VP],
+    "rl6_act_ablate": [_I, _U64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "rl6_probe_k1": [_VP, _VP, _VP, _I, _I, _VP],
+    "rl6_probe_k2": [_VP, _VP, _I, _I, _VP],
+    "rl6_probe_k3": [_VP, _VP, _I, _I, _VP],
+    "rl6_probe_k4": [_VP, _VP, _I, _VP],
+    "rl6_probe_k5": [_VP, _VP, _I, _I, _VP],
+    "rl6_probe_k6": [_VP, _VP, _VP, _I, _I, _VP],
+    "rl6_probe_k7": [_VP, _VP, _VP, _VP, _I, _I, _VP],
 }
 
 
@@ -80,16 +94,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _kernel_name(mangled: str) -> str:
+    """The last component of a mangled nested name: ``_ZN<len><ns><len><name>E...``
+    (the kernels sit in an anonymous namespace) gives ``<name>``."""
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group())
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    return name
+
+
 def _parse_ptxas(text: str) -> dict:
     """``{kernel: "registers, spills"}`` from ``-Xptxas -v`` output."""
     out, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            # The kernels are lowercase "*_kernel" names in an anonymous namespace,
-            # mangled as "<length><name>E"; anything else is kept as it is.
-            k = re.search(r"([a-z_]+_kernel)E", m.group(1))
-            current = k.group(1) if k else m.group(1)
+            current = _kernel_name(m.group(1))
             continue
         if current and ("registers" in line or "spill" in line):
             out[current] = (out.get(current, "") + " " + line.split("ptxas info    :")[-1].strip()).strip()

@@ -39,7 +39,8 @@ def test_every_module_imports_with_jax_blocked():
 def test_module_list_covers_the_ported_slice():
     for m in ("engine.env", "ops.philox", "ops.step_kernel", "ops.game_kernel", "ops.act_rollout_kernel",
               "ops.act_rollout_check", "utils.ops", "nets.mlp", "nets.convert", "buffers.ring",
-              "buffers.per", "agents.dqn", "runtime.vector", "ops._build"):
+              "buffers.per", "agents.dqn", "runtime.vector", "ops._build", "ops.act_ablate_kernel",
+              "ops.probe_ops", "experiments.act_rollout_ablate", "experiments.probe_ops"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -56,6 +57,7 @@ def test_cuda_entry_points_raise_without_a_card():
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
     from rl6nimmt_torch.buffers import per_init, per_init_kd, ring_init
     from rl6nimmt_torch.engine import EnvConfig, deal
+    from rl6nimmt_torch.experiments import act_rollout_ablate, probe_ops
     from rl6nimmt_torch.nets import mlp_init, noise_from_jax, params_from_jax
     from rl6nimmt_torch.ops.game_kernel import (deal_decks_plain, deal_games, deal_games_plain,
                                                 play_random_games, play_random_games_plain,
@@ -83,6 +85,12 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: mlp_init(torch.Generator().manual_seed(0), spec),
         lambda: params_from_jax(tree),
         lambda: noise_from_jax([{"eps_in": [[0.0]], "eps_out": [[0.0]]}]),
+        lambda: act_rollout_ablate.weights(cfg),
+        lambda: act_rollout_ablate.build("env", games=8, chain=1),
+        lambda: act_rollout_ablate.main(["full"]),
+        lambda: probe_ops.probe_inputs(),
+        lambda: probe_ops.run(),
+        lambda: probe_ops.main(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,4 +1,4 @@
-"""K1-K5 on the card vs their plain twins (marked ``gpu``; skip without a card).
+"""K1-K7 on the card vs their plain twins (marked ``gpu``; skip without a card).
 
 Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
 """
@@ -8,6 +8,8 @@ import torch
 
 from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
 from rl6nimmt_torch.buffers import per_init, per_init_kd
+from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
+from rl6nimmt_torch.experiments.probe_ops import compare, probe_inputs, probes
 from rl6nimmt_torch.engine import EnvConfig, deal, observe, step
 from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
 from rl6nimmt_torch.ops import _build
@@ -17,6 +19,7 @@ from rl6nimmt_torch.ops.act_rollout_check import (
     insert_twin_agreement,
     turn_effective_weights,
 )
+from rl6nimmt_torch.ops.act_ablate_kernel import ablate_twin_agreement, make_act_ablate_kernel
 from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS, act_rollout_plain, make_act_rollout_kernel
 from rl6nimmt_torch.ops.game_kernel import (
     deal_games,
@@ -154,3 +157,42 @@ def test_kernel_insert_cycle_runs_through_k5():
         assert bool(torch.isfinite(m["loss"]))
     assert _build.LAUNCHES["act_insert"] == 2
     assert (buf.ptr, buf.size) == (2 * 40 * 1024, 2 * 40 * 1024)
+
+
+@pytest.mark.parametrize("variant,G", [("env", 4096), ("obs", 4096), ("mm", 4096), ("obs", 333)])
+def test_k6_ablation_matches_twin(variant, G):
+    """env and obs bit-exact; mm at action agreement >= 0.999 with equal deals,
+    observations and rewards in the games that agree."""
+    dev = _cuda()
+    cfg = ablate.config()
+    w = ablate.weights(cfg, dev)
+    agree, games, err = ablate_twin_agreement(cfg, variant, G, 64, 13, w)
+    assert agree >= 0.999 and err == 0.0
+    if variant != "mm":
+        assert agree == 1.0 and games == G
+
+
+def test_k6_env_plays_k3s_games():
+    dev = _cuda()
+    cfg = ablate.config()
+    _, actions, rewards = make_act_ablate_kernel(cfg, 4096, 64, "env")(29, *ablate.weights(cfg, dev))
+    assert torch.equal(rewards.sum(dim=0), play_random_games(cfg, 29, 4096, device=dev)[0])
+
+
+def test_k6_ablation_entry_point_counts_its_launches():
+    dev = _cuda()
+    _build.reset_launches()
+    for v in ("env", "obs", "mm", "full"):
+        assert int(ablate.build(v, device=dev, games=256, chain=2)(3)) != 0
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "act_ablate_env": 2, "act_ablate_obs": 2, "act_ablate_mm": 2, "act_rollout": 2}
+
+
+@pytest.mark.parametrize("key", [f"k{i}" for i in range(1, 8)])
+def test_k7_probe_matches_twin(key):
+    dev = _cuda()
+    _build.reset_launches()
+    (_, label, kernel, twin, args, exact), = [p for p in probes(probe_inputs(dev)) if p[0] == key]
+    ok, diff = compare(kernel(*args), twin(*args), exact)
+    assert ok, f"{key} {label}: max|diff| {diff}"
+    assert _build.LAUNCHES[f"probe_{key}"] == 1
