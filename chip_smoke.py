@@ -30,11 +30,14 @@ process per source), then:
    point (K7's seven bodies, each against its twin); then holds K6 ``env``
    and ``obs`` bit-exact to their twins, ``env`` to K3 on the same seed and
    ``mm`` at action agreement >= 0.999, and prints the attribution of K4's
-   time: each variant's ms per generation, ms per launch at G=4096 and at
-   G=16,384 (128 blocks, one per SM), its bound and its ptxas line; and each
-   probe's ms beside the one PyTorch call that computes the same function.
+   time: each variant's ms per generation, ms per launch at G=4096 (128
+   blocks of 32 games, one per SM) and at G=16,384, its bound and its ptxas
+   line; and each probe's ms beside the one PyTorch call that computes the
+   same function.
 
-Prints one JSON line of kernels, the card's name and power limit, and last
+Prints one JSON line of kernels (K4's and K5's rows also carry their ptxas
+line, games per block and blocks at G=4096, and K4's ms at G=16,384), the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
 """
@@ -58,7 +61,7 @@ KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
 LEARN_ITERS = 8
 ABLATE_CHAIN = 32          # generations per timed ablation chain (the JAX script chained 256)
-ABLATE_G_WIDE = 16_384     # 128 blocks of 128 games: one block per SM of the H100
+ABLATE_G_WIDE = 16_384     # 4x the main path's games: 512 blocks of 32
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
                 hidden_sizes=(HIDDEN,), minibatch=64)
 
@@ -378,7 +381,18 @@ def main():
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         per = {k: v[name] for k, v in per_unit.items() if v[name]}
         log(json.dumps({"kernel": name, "ms": ms, "plain_ms": plain_ms, "launches_per_cycle": per,
-                        "shape": shape}))
+                        "shape": shape, "card": card}))
+    # The play loop's launch shape, as the built library has it, and resources (K4, K5).
+    ptxas = _build.BUILD_INFO.get("ptxas", {})
+
+    def ptxas_of(kname):
+        return ptxas.get(f"{kname}_kernel", "n/a")
+
+    games_per_block = _build.library().rl6_play_games()
+    for row in rows:
+        if row["name"] in ("act_rollout", "act_insert"):
+            row.update(ptxas=ptxas_of(row["name"]), games_per_block=games_per_block,
+                       blocks=-(-G // games_per_block))
 
     steps_per_gen = G * turns
     rates = {}
@@ -449,7 +463,6 @@ def main():
             return weight_bytes + obs + act_rew, g * turns * ((S - H) * HIDDEN * 2 + P * (H + A) * HIDDEN * 2)
         return weight_bytes + (k4_bytes - weight_bytes) / G * g, k4_flops / G * g
 
-    ptxas = _build.BUILD_INFO.get("ptxas", {})
     for v in VARIANTS:
         kname = "act_rollout" if v == "full" else f"act_ablate_{v}"
         ms_gen = ablate.timeit(chains[v], iters=5, chain=ABLATE_CHAIN)
@@ -461,8 +474,9 @@ def main():
         log(json.dumps({"ablation": v, "kernel": kname, "ms_per_generation": ms_gen,
                         "ms_per_launch": {str(g): x for g, x in per_launch.items()},
                         "bound_ms": {str(g): b[0] for g, b in bounds.items()}, "bound_by": bounds[G][1],
-                        "ptxas": ptxas.get(kname + "_kernel", "n/a"), "card": card}))
+                        "ptxas": ptxas_of(kname), "card": card}))
         if v == "full":
+            next(r for r in rows if r["name"] == "act_rollout")[f"ms_g{ABLATE_G_WIDE}"] = per_launch[ABLATE_G_WIDE]
             continue
         plain_ms = cuda_ms(lambda: act_ablate_plain(acfg, v, 7, G, *aw), 3)
         rows.append({"name": kname, "route": "cuda", "source": "rl6nimmt_torch/csrc/act_ablate_kernel.cu",
@@ -489,7 +503,7 @@ def main():
         plain_ms = cuda_ms(lambda: twin(*args), 50)
         lib_ms = cuda_ms(library[key], 200) if library[key] else None
         log(json.dumps({"probe": key, "label": label, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bytes": nbytes, "ptxas": ptxas.get(f"probe_{key}_kernel", "n/a")}))
+                        "bytes": nbytes, "ptxas": ptxas_of(f"probe_{key}"), "card": card}))
         rows.append({"name": f"probe_{key}", "route": "cuda", "source": "rl6nimmt_torch/csrc/probe_ops.cu",
                      "replaces": f"experiments/probe_pallas_ops.py:{body_line[key]}",
                      "launches": path_launches[f"probe_{key}"], "main_path_launches": launches[f"probe_{key}"],

@@ -9,107 +9,127 @@
 // once (393 KB), the planes written, 163,840 columns x (48 + 48 int8 + 8 f32)
 // = 21.0 MB, and the rewards, 0.66 MB: ~22.0 MB, ~6.6 us at 3.35 TB/s.
 //
-// Design: the play loop is act_play.cuh's play_greedy_games, shared with K4,
-// so a redesign of the loop moves both kernels.  K5's emitter:
-// * writes each turn's observation as the `state` columns of that turn, and
-//   the terminal observation as the `next_state` columns of every turn of the
-//   seat (n_steps >= max_turns: every transition bootstraps from it), with
-//   the pad rows S..state_rows-1 zero;
-// * keeps the game's actions and rewards (T*P ints each) in the thread, then
-//   runs the reverse recursion acc = r'_t + gamma * acc per seat, with
-//   r'_t = r_{t-1} (r'_0 = 0) under reward_lag, through __fmul_rn/__fadd_rn so
-//   that nvcc cannot contract it into an FMA and the plain twin's torch
-//   recursion equals it bit for bit; scal rows 0/1/2 get the return, the
-//   action and done = (t >= tail_start), rows 3.. zero.
-// Column map: block i (THREADS = 128 games, the port's tile) owns tile blocks
-// base = (ptr/128 + i*T*P) % (cap/128) onward; game gi of the block writes
-// column (base + t*P + p)*128 + gi of every plane row, so neighbouring threads
-// write neighbouring bytes of one feature row.  The wrapper requires
-// G % 128 == 0 and cap, ptr multiples of T*P*128, so a block's region never
-// straddles the ring end, and G*T*P <= cap, so no two blocks own the same
-// columns (blocks run concurrently: an overlap would be a write race).
+// Design: the play loop is act_play.cuh's, shared with K4, so a redesign of
+// the loop moves both kernels (32 games a block, 128 blocks at G=4096; warp 0
+// plays the games, seven worker warps run the forward, 64 hidden units a
+// pass; nothing in local memory; one kernel for every width).  K5's emitter:
+// * flush() writes each turn's observations as the `state` columns of that
+//   turn with the worker warps, 16 games (16 bytes) a store, and the terminal
+//   observation as the `next_state` columns of every turn of the seat
+//   (n_steps >= max_turns: every transition bootstraps from it), with the pad
+//   rows S..state_rows-1 zero, together with scal rows 2.. (done = (t >=
+//   tail_start), then zeros);
+// * each game's thread writes its actions (scal row 1) and rewards as they
+//   are produced, then runs the reverse recursion acc = r'_t + gamma * acc per
+//   seat over the rewards it wrote, with r'_t = r_{t-1} (r'_0 = 0) under
+//   reward_lag, through __fmul_rn/__fadd_rn so that nvcc cannot contract it
+//   into an FMA and the plain twin's torch recursion equals it bit for bit;
+//   scal row 0 gets the return.
+// Column map (the layout contract with the kd sampler, buffers/per.py): tile
+// i of TILE = 128 games (four blocks) owns tile blocks base = (ptr/128 +
+// i*T*P) % (cap/128) onward; game gi of the tile writes column (base + t*P +
+// p)*128 + gi of every plane row, so a block's 32 games write 32 neighbouring
+// bytes of one feature row.  The wrapper requires G % 128 == 0, planes on a
+// 16-byte boundary
+// and cap, ptr multiples of T*P*128, so a tile's region never straddles the
+// ring end, and G*T*P <= cap, so no two tiles own the same columns (blocks
+// run concurrently: an overlap would be a write race).
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "act_play.cuh"
 
 namespace {
 
-constexpr int MAX_TP = 128;  // turns x players of one game (6 nimmt!: <= 100)
+constexpr int TILE = 128;  // games a tile of the column map
+static_assert(TILE % rl6::PLAY_GAMES == 0, "a block's games lie in one tile");
 
 struct InsertEmit {
+  static constexpr bool kObs = true;
   int8_t* state;
   int8_t* next;
+  float* scal;
   int* rew_out;
-  long long cap, cap_blocks, base_blk;
-  int gi, g, G, P, H, S, state_rows, n_turns;
-  int acts[MAX_TP];  // this game's actions and rewards, (t, p) order
-  int rews[MAX_TP];
+  long long cap;
+  unsigned cap_blocks, ptr_blk;  // capacity and ptr in tile blocks (the launcher checks < 2^31)
+  int G, P, state_rows, scal_rows, n_turns, tail_start;
 
-  __device__ size_t col(int t, int p) const {
-    const long long blk = (base_blk + t * P + p) % cap_blocks;
-    return (size_t)blk * rl6::THREADS + gi;
+  // First tile block of game g's tile.  Its T*P blocks never pass the ring's
+  // end (cap and ptr are multiples of T*P*TILE), so they need no wrap.
+  // Both terms are below 2^31, so the 32-bit sum cannot wrap.
+  __device__ __forceinline__ unsigned tile_base(int g) const {
+    return (ptr_blk + (unsigned)(g / TILE) * (unsigned)(n_turns * P)) % cap_blocks;
   }
-  __device__ void write_obs(int8_t* plane, size_t c, const int* hand, const int* feat) const {
-    for (int i = 0; i < H; ++i) plane[(size_t)i * cap + c] = (int8_t)hand[i];
-    for (int f = 0; f < S - H; ++f) plane[(size_t)(H + f) * cap + c] = (int8_t)feat[f];
-    for (int r = S; r < state_rows; ++r) plane[(size_t)r * cap + c] = 0;
+  // Column of transition (t, p) of game g, whose tile starts at `base`.
+  __device__ __forceinline__ size_t col(unsigned base, int t, int p, int g) const {
+    return (size_t)(base + t * P + p) * TILE + g % TILE;
   }
-  __device__ void obs(int t, const int* hands, const int* feat) {
-    for (int p = 0; p < P; ++p) {
-      if (t < n_turns) {
-        write_obs(state, col(t, p), hands + p * H, feat);
-      } else {  // terminal observation: next_state of every turn of the seat
-        for (int tt = 0; tt < n_turns; ++tt) write_obs(next, col(tt, p), hands + p * H, feat);
+  __host__ __device__ static size_t stage_bytes(int, int) { return 0; }
+
+  // Plane row `row` of seat p for the 16 games from gl: 16 bytes, game-ordered.
+  __device__ __forceinline__ uint4 plane_bytes(const rl6::PlayTile& tile, int gl, int p, int row) const {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row < tile.S) {
+      const int f = row < tile.H ? tile.n_game + p * tile.H + row : row - tile.H;
+      const float* x = tile.x + f * rl6::PLAY_GAMES + gl;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j >> 2] |= (uint32_t)(uint8_t)(int8_t)(int)x[j] << (8 * (j & 3));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  // The workers' stores, 16 games (16 bytes, or 4 games of f32) an item: the
+  // blocks are full (G % 128 == 0) and every plane row's columns of a tile
+  // block are 16-byte aligned (cap % 128 == 0, planes 16-byte aligned).
+  __device__ __forceinline__ void flush(int t, const rl6::PlayTile& tile) {
+    constexpr int NH = rl6::PLAY_GAMES / 16, NQ = rl6::PLAY_GAMES / 4;
+    const unsigned base = tile_base(tile.g0);  // a block's games share one tile
+    if (t < n_turns) {
+      for (int q = rl6::worker_index(); q < P * state_rows * NH; q += rl6::WORKERS) {
+        const int gl = (q % NH) * 16, row = (q / NH) % state_rows, p = q / NH / state_rows;
+        *reinterpret_cast<uint4*>(state + (size_t)row * cap + col(base, t, p, tile.g0 + gl)) =
+            plane_bytes(tile, gl, p, row);
       }
+      return;
+    }
+    for (int q = rl6::worker_index(); q < n_turns * P * state_rows * NH; q += rl6::WORKERS) {
+      const int gl = (q % NH) * 16, row = (q / NH) % state_rows, tp = q / NH / state_rows;
+      *reinterpret_cast<uint4*>(next + (size_t)row * cap + col(base, tp / P, tp % P, tile.g0 + gl)) =
+          plane_bytes(tile, gl, tp % P, row);
+    }
+    const int rows = scal_rows - 2;
+    for (int q = rl6::worker_index(); q < n_turns * P * rows * NQ; q += rl6::WORKERS) {
+      const int gl = (q % NQ) * 4, row = 2 + (q / NQ) % rows, tp = q / NQ / rows, tt = tp / P;
+      const float v = row == 2 && tt >= tail_start ? 1.f : 0.f;
+      *reinterpret_cast<float4*>(scal + (size_t)row * cap + col(base, tt, tp % P, tile.g0 + gl)) =
+          make_float4(v, v, v, v);
     }
   }
-  __device__ void action(int t, int p, int card) { acts[t * P + p] = card; }
-  __device__ void rewards(int t, const int* rew) {
-    for (int p = 0; p < P; ++p) {
-      rews[t * P + p] = rew[p];
-      rew_out[(size_t)(t * P + p) * G + g] = rew[p];
-    }
+  __device__ __forceinline__ void action(int t, int g, int p, int card) {
+    scal[(size_t)cap + col(tile_base(g), t, p, g)] = (float)card;
+  }
+  __device__ __forceinline__ void rewards(int t, int g, const int* rew) {
+    for (int p = 0; p < P; ++p) rew_out[(size_t)(t * P + p) * G + g] = rew[p];
   }
 };
 
-__global__ void act_insert_kernel(rl6::PlayArgs a, int8_t* __restrict__ state,
-                                  int8_t* __restrict__ next, float* __restrict__ scal,
-                                  int* __restrict__ rew_out, long long cap, long long ptr,
-                                  int state_rows, int scal_rows, float gamma, int n_steps,
-                                  int reward_lag) {
-  extern __shared__ float smem[];
-  const int P = a.c.P, T = a.n_turns, TP = T * P;
-  const long long cap_blocks = cap / rl6::THREADS;
-  InsertEmit emit;
-  emit.state = state;
-  emit.next = next;
-  emit.rew_out = rew_out;
-  emit.cap = cap;
-  emit.cap_blocks = cap_blocks;
-  emit.base_blk = (ptr / rl6::THREADS + (long long)blockIdx.x * TP) % cap_blocks;
-  emit.gi = threadIdx.x;
-  emit.g = blockIdx.x * blockDim.x + threadIdx.x;
-  emit.G = a.G;
-  emit.P = P;
-  emit.H = a.c.H;
-  emit.S = a.S;
-  emit.state_rows = state_rows;
-  emit.n_turns = T;
-  rl6::play_greedy_games(a, smem, emit);
-  if (emit.g >= a.G) return;
+__global__ void __launch_bounds__(rl6::PLAY_THREADS)
+    act_insert_kernel(rl6::PlayArgs a, InsertEmit emit, float gamma, int reward_lag) {
+  rl6::GreedyActor actor;
+  rl6::play_games(a, actor, emit);
+  const int g = blockIdx.x * rl6::PLAY_GAMES + threadIdx.x;
+  if (threadIdx.x >= rl6::PLAY_GAMES || g >= a.G) return;
 
-  const int tail_start = n_steps > 1 ? T - n_steps + 1 : T - 1;
+  // The n-step returns, from the rewards this thread wrote (own writes: visible).
+  const int P = a.c.P, T = a.n_turns, G = a.G;
+  const unsigned base = emit.tile_base(g);
   for (int p = 0; p < P; ++p) {
     float acc = 0.f;
     for (int t = T - 1; t >= 0; --t) {
-      const float r = reward_lag ? (t > 0 ? (float)emit.rews[(t - 1) * P + p] : 0.f)
-                                 : (float)emit.rews[t * P + p];
+      const float r = reward_lag ? (t > 0 ? (float)emit.rew_out[(size_t)((t - 1) * P + p) * G + g] : 0.f)
+                                 : (float)emit.rew_out[(size_t)(t * P + p) * G + g];
       acc = __fadd_rn(r, __fmul_rn(gamma, acc));
-      const size_t c = emit.col(t, p);
-      scal[c] = acc;
-      scal[(size_t)cap + c] = (float)emit.acts[t * P + p];
-      scal[2 * (size_t)cap + c] = t >= tail_start ? 1.f : 0.f;
-      for (int row = 3; row < scal_rows; ++row) scal[(size_t)row * cap + c] = 0.f;
+      emit.scal[emit.col(base, t, p, g)] = acc;
     }
   }
 }
@@ -124,23 +144,18 @@ extern "C" int rl6_act_insert(uint64_t seed, long long ptr, const void* w1, cons
                               int reward_lag, void* stream) {
   rl6::Cfg c{P, R, T, H, C, include_summaries};
   const int S = H + 1 + (include_summaries ? 3 * R : 0) + R * T;
-  const long long region = (long long)n_turns * P * rl6::THREADS;
-  if (hidden > rl6::MAX_HIDDEN || S - H > rl6::MAX_FEATURES || n_turns * P > MAX_TP ||
-      G % rl6::THREADS != 0 || capacity % region != 0 || ptr % region != 0 || ptr < 0 ||
-      ptr >= capacity || (long long)G * n_turns * P > capacity || state_rows < S ||
-      scal_rows < 3 || n_steps < n_turns)
+  const long long region = (long long)n_turns * P * TILE;
+  if ((((uintptr_t)state | (uintptr_t)next | (uintptr_t)scal) & 15) != 0 ||
+      G % TILE != 0 || capacity % region != 0 || ptr % region != 0 || ptr < 0 || ptr >= capacity ||
+      (long long)G * n_turns * P > capacity || capacity / TILE > INT_MAX || state_rows < S ||
+      scal_rows < 3 || n_steps < n_turns || hidden < 1)
     return (int)cudaErrorInvalidValue;
-  rl6::PlayArgs a{seed, (const float*)w1, (const float*)b1, (const float*)wa, (const float*)ba,
-                  G, S, C, hidden, n_turns, c};
-  const size_t smem = rl6::play_smem_bytes(S, C, hidden);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        act_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (G == 0) return 0;
-  act_insert_kernel<<<G / rl6::THREADS, rl6::THREADS, smem, (cudaStream_t)stream>>>(
-      a, (int8_t*)state, (int8_t*)next, (float*)scal, (int*)rew_out, capacity, ptr, state_rows,
-      scal_rows, gamma, n_steps, reward_lag);
-  return (int)cudaGetLastError();
+  const rl6::PlayArgs a{seed, (const float*)w1, (const float*)b1, (const float*)wa,
+                        (const float*)ba, G, S, C, hidden, n_turns, c};
+  const InsertEmit emit{(int8_t*)state, (int8_t*)next, (float*)scal, (int*)rew_out,
+                        capacity, (unsigned)(capacity / TILE), (unsigned)(ptr / TILE), G, P,
+                        state_rows, scal_rows,
+                        n_turns, n_steps > 1 ? n_turns - n_steps + 1 : n_turns - 1};
+  return rl6::launch_play(act_insert_kernel, G, rl6::play_smem_bytes<rl6::GreedyActor, InsertEmit>(c, S, C),
+                          (cudaStream_t)stream, a, emit, gamma, reward_lag);
 }

@@ -10,11 +10,18 @@
 // (~7.7 us at 67 TFLOP/s fp32); the bytes -- the weights once, the int8
 // observations and int32 actions/rewards out -- are ~10.2 MB (~3.0 us).
 //
-// Design: the play loop is act_play.cuh's play_greedy_games, shared with K5
-// (act_insert_kernel.cu), so a redesign of the loop moves both kernels.  K4's
-// emitter (row_major_emit.cuh, shared with K6) writes each observation, action
-// and reward as it is produced: obs [T+1, G, P, S] int8, actions and rewards
-// [T, G, P] int32.
+// Design: the play loop is act_play.cuh's, shared with K5 (act_insert_kernel.cu),
+// so a redesign of the loop moves both kernels.  One thread per game and 128
+// games a block would keep 100 of the 132 SMs idle at G=4096 and make each
+// game's forward one thread's serial chain of ~63,500 multiply-adds.  Instead a
+// block holds 32 games (128 blocks at G=4096, one per SM) and 256 threads:
+// warp 0 runs the game logic on shared-memory game state, and seven worker
+// warps run the forward in register tiles, 64 hidden units a pass, with h and
+// the features in shared memory, so nothing lives in local memory and one
+// kernel serves every width.  K4's emitter (row_major_emit.cuh, shared with
+// K6) builds each turn's observation run of the block in shared memory and
+// stores it 16 bytes a store; each game's actions and rewards come from its
+// thread: obs [T+1, G, P, S] int8, actions and rewards [T, G, P] int32.
 #include <cuda_runtime.h>
 
 #include "act_play.cuh"
@@ -22,33 +29,29 @@
 
 namespace {
 
-__global__ void act_rollout_kernel(rl6::PlayArgs a, int8_t* __restrict__ obs_out,
-                                   int* __restrict__ act_out, int* __restrict__ rew_out) {
-  extern __shared__ float smem[];
-  rl6::RowMajorEmit emit{obs_out, act_out, rew_out,
-                         (int)(blockIdx.x * blockDim.x + threadIdx.x), a.G, a.c.P, a.c.H, a.S};
-  rl6::play_greedy_games(a, smem, emit);
+__global__ void __launch_bounds__(rl6::PLAY_THREADS)
+    act_rollout_kernel(rl6::PlayArgs a, rl6::RowMajorEmit emit) {
+  rl6::GreedyActor actor;
+  rl6::play_games(a, actor, emit);
 }
 
 }  // namespace
+
+// Games a CUDA block of the play loop (K4, K5, K6): the launch shape, for the
+// reports.
+extern "C" int rl6_play_games(void) { return rl6::PLAY_GAMES; }
 
 extern "C" int rl6_act_rollout(uint64_t seed, const void* w1, const void* b1, const void* wa,
                                const void* ba, void* obs_out, void* act_out, void* rew_out, int G,
                                int P, int R, int T, int H, int C, int hidden, int n_turns,
                                int include_summaries, void* stream) {
+  if (hidden < 1) return (int)cudaErrorInvalidValue;
   rl6::Cfg c{P, R, T, H, C, include_summaries};
   const int S = H + 1 + (include_summaries ? 3 * R : 0) + R * T;
-  if (hidden > rl6::MAX_HIDDEN || S - H > rl6::MAX_FEATURES) return (int)cudaErrorInvalidValue;
-  rl6::PlayArgs a{seed, (const float*)w1, (const float*)b1, (const float*)wa, (const float*)ba,
-                  G, S, C, hidden, n_turns, c};
-  const size_t smem = rl6::play_smem_bytes(S, C, hidden);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        act_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (G + rl6::THREADS - 1) / rl6::THREADS;
-  act_rollout_kernel<<<blocks, rl6::THREADS, smem, (cudaStream_t)stream>>>(
-      a, (int8_t*)obs_out, (int*)act_out, (int*)rew_out);
-  return (int)cudaGetLastError();
+  const rl6::PlayArgs a{seed, (const float*)w1, (const float*)b1, (const float*)wa,
+                        (const float*)ba, G, S, C, hidden, n_turns, c};
+  const rl6::RowMajorEmit emit{(int8_t*)obs_out, (int*)act_out, (int*)rew_out, G, P};
+  return rl6::launch_play(act_rollout_kernel, G,
+                          rl6::play_smem_bytes<rl6::GreedyActor, rl6::RowMajorEmit>(c, S, C),
+                          (cudaStream_t)stream, a, emit);
 }

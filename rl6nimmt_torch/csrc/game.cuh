@@ -1,4 +1,4 @@
-// Shared device code of the port's game kernels (K1-K4).
+// Shared device code of the port's game kernels (K1-K3 and the K4/K5/K6 play loop).
 //
 // * philox4x32_10: the one random stream of the kernels and their plain
 //   twins (rl6nimmt_torch/ops/philox.py).  Counter layout, identical there:
@@ -16,7 +16,8 @@
 //   optional (K3 never materialises them).
 //
 // Sizes are runtime values bounded by the MAX_* constants; the Python
-// wrappers check the bounds before launching.
+// wrappers check the bounds before launching.  Functions that need scratch
+// take it as a pointer: K1-K3 pass local arrays, the play loop shared memory.
 #pragma once
 
 #include <cstdint>
@@ -28,7 +29,7 @@ constexpr int MAX_R = 8;
 constexpr int MAX_T = 8;
 constexpr int MAX_H = 16;
 constexpr int MAX_C = 128;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // threads a block of the one-thread-per-game kernels (K1-K3)
 
 constexpr uint32_t STREAM_DEAL = 0;
 constexpr uint32_t STREAM_PLAY = 1;
@@ -80,8 +81,10 @@ struct Stream {
         game(game_), stream(stream_), next(0) {}
 
   __device__ __forceinline__ uint32_t word() {
-    if ((next & 3u) == 0u) cur = philox4x32_10(game, next >> 2, stream, 0u, k0, k1);
-    return cur.w[next++ & 3u];
+    const uint32_t n = next++, i = n & 3u;
+    if (i == 0u) cur = philox4x32_10(game, n >> 2, stream, 0u, k0, k1);
+    // Selects, not cur.w[i]: a runtime index would put `cur` in local memory.
+    return i == 0u ? cur.w[0] : i == 1u ? cur.w[1] : i == 2u ? cur.w[2] : cur.w[3];
   }
 
   // Uniform draw in [0, n): multiply-high of one 32-bit word.
@@ -108,9 +111,9 @@ __device__ __forceinline__ int card_points(int card) {
 // Deal one game: hands[p*H + i] sorted ascending per seat, seeds[r] the card
 // that starts row r.  Equivalent to init_from_deck on a deck whose slots
 // [0, P*H) are the first P*H Fisher-Yates draws and whose slot C-1-r is draw
-// P*H + r.
-__device__ inline void deal(const Cfg& c, uint64_t seed, uint32_t game, int* hands, int* seeds) {
-  uint8_t deck[MAX_C];
+// P*H + r.  `deck` is C bytes of scratch.
+__device__ inline void deal(const Cfg& c, uint64_t seed, uint32_t game, int* hands, int* seeds,
+                            uint8_t* deck) {
   for (int i = 0; i < c.C; ++i) deck[i] = (uint8_t)i;
   Stream s(seed, game, STREAM_DEAL);
   const int PH = c.P * c.H;
@@ -226,9 +229,10 @@ __device__ inline void sort_plays(int P, int* cards, int* players) {
 }
 
 // Resolve a whole turn: P sub-plays in ascending card order; rewards[p] gets
-// minus the penalty seat p paid this turn.
-__device__ inline void resolve_plays(const Cfg& c, int* board, Rows& a, const int* actions, int* rewards) {
-  int cards[MAX_P], players[MAX_P];
+// minus the penalty seat p paid this turn.  cards and players are P ints of
+// scratch each.
+__device__ inline void resolve_plays(const Cfg& c, int* board, Rows& a, const int* actions, int* rewards,
+                                     int* cards, int* players) {
   for (int p = 0; p < c.P; ++p) {
     cards[p] = actions[p];
     players[p] = p;
@@ -238,11 +242,9 @@ __device__ inline void resolve_plays(const Cfg& c, int* board, Rows& a, const in
   for (int i = 0; i < c.P; ++i) rewards[players[i]] -= apply_subplay(c, board, a, cards[i]);
 }
 
-// Remove a card from a sorted, -1-padded hand of `count` live cards.
-__device__ inline void remove_card(int* hand, int count, int card) {
-  int i = 0;
-  while (i < count && hand[i] != card) ++i;
-  for (; i + 1 < count; ++i) hand[i] = hand[i + 1];
+// Remove slot `slot` from a sorted, -1-padded hand of `count` live cards.
+__device__ inline void remove_slot(int* hand, int count, int slot) {
+  for (int i = slot; i + 1 < count; ++i) hand[i] = hand[i + 1];
   if (count > 0) hand[count - 1] = -1;
 }
 

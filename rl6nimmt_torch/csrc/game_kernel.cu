@@ -33,7 +33,8 @@ __global__ void deal_games_kernel(uint64_t seed, int* __restrict__ board_out,
   if (g >= G) return;
   int hands[rl6::MAX_C];
   int seeds[rl6::MAX_R];
-  rl6::deal(c, seed, (uint32_t)g, hands, seeds);
+  uint8_t deck[rl6::MAX_C];
+  rl6::deal(c, seed, (uint32_t)g, hands, seeds, deck);
   const int PH = c.P * c.H;
   for (int i = 0; i < PH; ++i) hands_out[(size_t)g * PH + i] = hands[i];
   for (int r = 0; r < c.R; ++r) {
@@ -50,7 +51,8 @@ __global__ void play_random_games_kernel(uint64_t seed, int* __restrict__ reward
   if (g >= G) return;
   int hands[rl6::MAX_C];
   int seeds[rl6::MAX_R];
-  rl6::deal(c, seed, (uint32_t)g, hands, seeds);
+  uint8_t deck[rl6::MAX_C];
+  rl6::deal(c, seed, (uint32_t)g, hands, seeds, deck);
   rl6::Rows a;
   rl6::seed_aggregates(c, seeds, a);
 

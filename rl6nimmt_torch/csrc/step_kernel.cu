@@ -30,14 +30,14 @@ __global__ void resolve_turn_kernel(const int* __restrict__ board, const int* __
   const int cells = c.R * c.T;
   int b[rl6::MAX_R * rl6::MAX_T];
   int len[rl6::MAX_R];
-  int acts[rl6::MAX_P], rew[rl6::MAX_P];
+  int acts[rl6::MAX_P], rew[rl6::MAX_P], cards[rl6::MAX_P], players[rl6::MAX_P];
   for (int i = 0; i < cells; ++i) b[i] = board[(size_t)g * cells + i];
   for (int r = 0; r < c.R; ++r) len[r] = row_len[(size_t)g * c.R + r];
   for (int p = 0; p < c.P; ++p) acts[p] = actions[(size_t)g * c.P + p];
 
   rl6::Rows a;
   rl6::row_aggregates(c, b, len, a);
-  rl6::resolve_plays(c, b, a, acts, rew);
+  rl6::resolve_plays(c, b, a, acts, rew, cards, players);
 
   for (int i = 0; i < cells; ++i) board_out[(size_t)g * cells + i] = b[i];
   for (int r = 0; r < c.R; ++r) len_out[(size_t)g * c.R + r] = a.len[r];

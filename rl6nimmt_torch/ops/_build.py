@@ -66,6 +66,7 @@ SIGNATURES = {
     "rl6_probe_k5": [_VP, _VP, _I, _I, _VP],
     "rl6_probe_k6": [_VP, _VP, _VP, _I, _I, _VP],
     "rl6_probe_k7": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    "rl6_play_games": [],
 }
 
 

@@ -10,8 +10,10 @@ mean(A)`` shift is a per-state constant and cannot change the argmax), over
 the cards in its hand, lowest card first on ties -- ``argmax`` over the
 legal-masked row.
 
-On CUDA weights it launches ``csrc/act_rollout_kernel.cu``; on CPU weights it
-runs :func:`act_rollout_plain`.  Row-major layout only (the TPU's
+On CUDA weights it launches ``csrc/act_rollout_kernel.cu`` (a CUDA block's
+games share one forward spread over its threads; the built library's
+``rl6_play_games()`` says how many); on CPU weights it runs
+:func:`act_rollout_plain`.  Row-major layout only (the TPU's
 ``feature_major`` layout was a lane-layout device).
 
 ``make_act_insert_kernel(cfg, num_games, hidden, capacity, gamma, n_steps,
@@ -20,9 +22,9 @@ reward_lag)`` returns ``insert(seed, ptr, w1, b1, wa, ba, state, next, scal)
 n-step transitions (lagged discounted returns, terminal bootstrap
 observation, done tail; ``n_steps >= max_turns``) are written IN PLACE into
 the :func:`..buffers.per.per_init_kd` planes -- int8 ``state``/``next``
-``[S_PAD, cap]`` and f32 ``scal [SCAL_ROWS, cap]`` -- at the columns of
-:func:`insert_columns`.  On CUDA tensors it launches
-``csrc/act_insert_kernel.cu``, which shares K4's play loop
+``[S_PAD, cap]`` and f32 ``scal [SCAL_ROWS, cap]``, each starting on a
+16-byte boundary -- at the columns of :func:`insert_columns`.  On CUDA
+tensors it launches ``csrc/act_insert_kernel.cu``, which shares K4's play loop
 (``csrc/act_play.cuh``); on CPU tensors it runs :func:`act_insert_plain`.
 """
 
@@ -123,8 +125,7 @@ def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
 
 S_PAD = 48      # state rows of the int8 planes; rows S..S_PAD-1 stay zero
 SCAL_ROWS = 8   # f32 scalar plane rows: 0 = n-step reward, 1 = action, 2 = done, rest zero
-TILE = 128      # games per CUDA block (rl6::THREADS): the unit of the column map
-MAX_TP = 128    # turns x players of one game that K5 keeps in the thread
+TILE = 128      # games a tile of the column map: the layout contract with the kd sampler
 
 
 def insert_columns(cfg: EnvConfig, num_games: int, capacity: int, ptr: int, device) -> torch.Tensor:
@@ -187,16 +188,16 @@ def make_act_insert_kernel(cfg: EnvConfig, num_games: int, hidden: int, capacity
     T, P, S, G = cfg.max_turns, cfg.num_players, cfg.state_length, num_games
     region = T * P * TILE
     if G % TILE:
-        raise ValueError(f"num_games={G} must be a multiple of {TILE} (one CUDA block of games)")
+        raise ValueError(f"num_games={G} must be a multiple of {TILE} (one tile of the column map)")
     if n_steps < T:
         raise ValueError("direct-insert kernel requires n_steps >= max_turns")
     if capacity <= 0 or capacity % region:
         raise ValueError(f"capacity={capacity} must be a positive multiple of T*P*TILE={region}")
     if G * T * P > capacity:
-        # Two CUDA blocks would own the same columns and race on them.
+        # Two tiles would own the same columns, and their blocks would race on them.
         raise ValueError(f"capacity={capacity} is below one insert of T*P*num_games={G * T * P}")
-    if S > S_PAD or T * P > MAX_TP:
-        raise ValueError(f"direct-insert kernel needs state_length <= {S_PAD} and T*P <= {MAX_TP}")
+    if S > S_PAD:
+        raise ValueError(f"direct-insert kernel needs state_length <= {S_PAD}")
 
     def insert(seed, ptr, w1, b1, wa, ba, state, nxt, scal):
         seed, ptr = _check_seed(seed), int(ptr)
@@ -207,6 +208,9 @@ def make_act_insert_kernel(cfg: EnvConfig, num_games: int, hidden: int, capacity
             ("state", state, (S_PAD, capacity), torch.int8),
             ("next", nxt, (S_PAD, capacity), torch.int8),
             ("scal", scal, (SCAL_ROWS, capacity), torch.float32)])
+        for name, x in (("state", state), ("next", nxt), ("scal", scal)):
+            if x.data_ptr() % 16:   # the kernel stores 16 bytes of a plane row at once
+                raise ValueError(f"act_insert: {name} must start on a 16-byte boundary")
         if dev.type == "cpu":
             return act_insert_plain(cfg, seed, G, w1, b1, wa, ba, ptr, state, nxt, scal,
                                     gamma, n_steps, reward_lag)

@@ -86,13 +86,39 @@ def _flagship_weights(dev, G=4096):
     return cfg, dqn, spec, params, noise
 
 
-def test_k4_act_rollout_matches_twin():
+def _k4_args(dev, cfg, hidden):
+    """K4's per-turn effective weights (w1, b1, wa, ba) of a flagship net of width ``hidden``."""
+    dqn = DQNConfig(**{**FLAGSHIP, "hidden_sizes": (hidden,)})
+    spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = mlp_init(gen, spec)
+    eff = turn_effective_weights(spec, params, draw_mlp_noise(spec, gen, batch=(cfg.max_turns,)))
+    return tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
+                                          eff["heads"][1]["w"], eff["heads"][1]["b"]))
+
+
+# Game shapes beside the default 6 nimmt! deck: the summaries off; a 127-card deck
+# (12 seats); the longest observation the kernels accept (S = 105, 7 seats); the
+# shape whose play loop needs the most shared memory (16 seats of 7 cards, S = 96).
+SHAPES = {"default": {}, "no_summaries": dict(include_summaries=False), "deck_127": dict(num_cards=127),
+          "long_rows": dict(num_rows=8, threshold=8, hand_size=16, num_cards=127),
+          "most_smem": dict(num_rows=8, threshold=8, hand_size=7, num_cards=125)}
+
+# G ragged against the 32 games of a block; hidden widths of one 64-unit chunk (64),
+# part of one (32), two (100) and four (256); the widest net at the most seats of
+# each deck.
+K4_CASES = [(P, G, hidden, "default") for P, G in [(4, 4096), (2, 1000), (6, 129), (4, 33)]
+            for hidden in (64, 32, 100, 256)] + [
+    (4, 1000, 64, "no_summaries"), (10, 1000, 256, "default"), (12, 129, 256, "deck_127"),
+    (7, 129, 256, "long_rows"), (16, 129, 256, "most_smem")]
+
+
+@pytest.mark.parametrize("num_players,G,hidden,shape", K4_CASES)
+def test_k4_act_rollout_matches_twin(num_players, G, hidden, shape):
     dev = _cuda()
-    cfg, dqn, spec, params, noise = _flagship_weights(dev)
-    eff = turn_effective_weights(spec, params, noise)
-    args = (eff["trunk"][0]["w"], eff["trunk"][0]["b"], eff["heads"][1]["w"], eff["heads"][1]["b"])
-    G = 4096
-    ok, ak, rk = make_act_rollout_kernel(cfg, G, 64)(21, *args)
+    cfg = EnvConfig(num_players, **SHAPES[shape])
+    args = _k4_args(dev, cfg, hidden)
+    ok, ak, rk = make_act_rollout_kernel(cfg, G, hidden)(21, *args)
     op, ap, rp = act_rollout_plain(cfg, 21, G, *args)
     assert torch.equal(ok[0], op[0])                        # same deals
     agree = (ak == ap).all(dim=(0, 2))                      # games whose actions all agree
@@ -126,15 +152,20 @@ def test_flagship_cycle_runs_through_the_kernels(kernel_act_rollout):
     assert o0.shape == (8, 4, 47)
 
 
-def test_k5_act_insert_matches_twin():
-    """Flagship shapes with a ptr whose tile regions wrap past the ring end."""
+# (P, G, hidden, capacity, ptr): the flagship shapes with a ptr whose tile regions
+# wrap past the ring end; two seats with 1280 games (10 tiles, wrapping too); width
+# 32; ten seats at width 256 (wrapping too).
+K5_CASES = [(4, 4096, 64, 204_800, 163_840), (2, 1280, 64, 38_400, 25_600), (4, 4096, 32, 204_800, 163_840),
+            (10, 1280, 256, 128_000, 64_000)]
+
+
+@pytest.mark.parametrize("num_players,G,hidden,capacity,ptr", K5_CASES)
+def test_k5_act_insert_matches_twin(num_players, G, hidden, capacity, ptr):
     dev = _cuda()
-    cfg, dqn, spec, params, noise = _flagship_weights(dev)
-    eff = turn_effective_weights(spec, params, noise)
-    args = tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
-                                          eff["heads"][1]["w"], eff["heads"][1]["b"]))
-    agree, games, err = insert_twin_agreement(cfg, 4096, 64, 204_800, 163_840, 31, args)
-    assert agree >= 0.999 and games >= 4096 * 0.99 and err == 0.0
+    cfg = EnvConfig(num_players)
+    args = _k4_args(dev, cfg, hidden)
+    agree, games, err = insert_twin_agreement(cfg, G, hidden, capacity, ptr, 31, args)
+    assert agree >= 0.999 and games >= G * 0.99 and err == 0.0
 
 
 def test_insert_planes_agreement_on_card():
@@ -159,14 +190,22 @@ def test_kernel_insert_cycle_runs_through_k5():
     assert (buf.ptr, buf.size) == (2 * 40 * 1024, 2 * 40 * 1024)
 
 
-@pytest.mark.parametrize("variant,G", [("env", 4096), ("obs", 4096), ("mm", 4096), ("obs", 333)])
-def test_k6_ablation_matches_twin(variant, G):
+# (variant, G, P, hidden, shape): the ablation's own configuration, then mm's
+# A-wide head at width 256 with six seats, on the 127-card deck with twelve, and at
+# the shape that needs the most shared memory.
+K6_CASES = [("env", 4096, 4, 64, "default"), ("obs", 4096, 4, 64, "default"), ("mm", 4096, 4, 64, "default"),
+            ("obs", 333, 4, 64, "default"), ("mm", 1000, 6, 256, "default"), ("mm", 129, 12, 256, "deck_127"),
+            ("mm", 129, 16, 256, "most_smem")]
+
+
+@pytest.mark.parametrize("variant,G,num_players,hidden,shape", K6_CASES)
+def test_k6_ablation_matches_twin(variant, G, num_players, hidden, shape):
     """env and obs bit-exact; mm at action agreement >= 0.999 with equal deals,
     observations and rewards in the games that agree."""
     dev = _cuda()
-    cfg = ablate.config()
-    w = ablate.weights(cfg, dev)
-    agree, games, err = ablate_twin_agreement(cfg, variant, G, 64, 13, w)
+    cfg = EnvConfig(num_players, **SHAPES[shape])
+    w = ablate.weights(cfg, dev, hidden)
+    agree, games, err = ablate_twin_agreement(cfg, variant, G, hidden, 13, w)
     assert agree >= 0.999 and err == 0.0
     if variant != "mm":
         assert agree == 1.0 and games == G

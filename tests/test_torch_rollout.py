@@ -212,7 +212,7 @@ def test_insert_planes_agreement_on_cpu():
 
 
 @pytest.mark.parametrize("case", ["capacity", "capacity_below_one_insert", "ptr", "num_games",
-                                  "n_steps", "planes"])
+                                  "n_steps", "planes", "misaligned"])
 def test_act_insert_kernel_validation(case):
     from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS, make_act_insert_kernel
 
@@ -233,5 +233,8 @@ def test_act_insert_kernel_validation(case):
     ptr = 128 if case == "ptr" else 0                  # not a multiple of T*P*128
     if case == "planes":
         planes[2] = planes[2].double()
-    with pytest.raises((ValueError, TypeError), match="ptr" if case == "ptr" else "scal"):
+    if case == "misaligned":   # contiguous, but one byte past a 16-byte boundary
+        planes[0] = torch.zeros(S_PAD * KD_CAP + 1, dtype=torch.int8)[1:].view(S_PAD, KD_CAP)
+    match = {"ptr": "ptr", "misaligned": "state must start on a 16-byte boundary"}.get(case, "scal")
+    with pytest.raises((ValueError, TypeError), match=match):
         insert(1, ptr, *args, *planes)
