@@ -6,9 +6,13 @@ Builds the port's CUDA kernels from ``rl6nimmt_torch/csrc`` (nvcc, one
 process per source), then:
 
 1. prints the card, its power limit, the torch/CUDA versions, the build time
-   and ptxas registers/spills per kernel;
+   and ptxas registers/spills per kernel, and requires 0 B stack frame and 0
+   spills of every K1 instance;
 2. holds K1-K5 against their plain PyTorch twins at the main path's shapes
-   (P=4, G=4096, hidden 64): K1-K3 bit-exact, K4 with exact deals, action
+   (P=4, G=4096, hidden 64): K1-K3 bit-exact (K1 in both layouts, the
+   games-last entry also against the row-major one on the transposed state,
+   on every one of the 10 turns, and a launch under ``torch.cuda.stream``
+   on that stream), K4 with exact deals, action
    agreement >= 0.999 and equal observations/rewards in agreeing games; K5 at
    capacity 204,800 and ptr 163,840 (tile regions wrap past the ring end) on
    sentinel-filled planes, every written column equal to the twin's in
@@ -16,14 +20,17 @@ process per source), then:
 3. replays K4's games on the engine path (``greedy_replay_agreement``) and
    holds K5's planes against K4's trajectory (``insert_planes_agreement``);
 4. drives the main path with every launch counter at 0: 3 random-rollout
-   generations fused (K3) and on the engine path (K2 + K1), then 3 flagship
+   generations fused (K3), on the engine path (K2 + K1) and games-last (K2 +
+   the games-last K1), which must agree bit for bit, then 3 flagship
    Noisy-D3QN-PER-10step cycles (PER 200,000, 8 updates, Adam 1e-3) on the
    engine path, 3 with ``kernel_act_rollout=True`` (K4), 3 with
    ``kernel_insert=True`` (K5, ``per_init_kd`` 204,800); each path must
    launch exactly its kernels; then two cycles from one state and one
    injected randomness must agree bit for bit, in every mode;
-5. times each kernel and its twin with CUDA events, and the rollouts and
-   cycles in env-steps/s;
+5. times each kernel and its twin with CUDA events (``ms``: per call, the
+   host's launch route included) and each kernel on the device alone
+   (``device_ms``: its ``torch.profiler`` kernel events per launch), and the
+   rollouts and cycles in env-steps/s;
 6. drives the ablation and probe path with every launch counter at 0: the
    act-rollout ablation's entry point (``env``, ``obs``, ``mm`` on K6,
    ``full`` on K4; chains of ABLATE_CHAIN generations) and the probe entry
@@ -32,12 +39,12 @@ process per source), then:
    ``mm`` at action agreement >= 0.999, and prints the attribution of K4's
    time: each variant's ms per generation, ms per launch at G=4096 (128
    blocks of 32 games, one per SM) and at G=16,384, its bound and its ptxas
-   line; and each probe's ms beside the one PyTorch call that computes the
-   same function.
+   line; and each probe's ms and device ms beside those of the one PyTorch
+   call that computes the same function (a yardstick must not return a view).
 
-Prints one JSON line of kernels (K4's and K5's rows also carry their ptxas
-line, games per block and blocks at G=4096, and K4's ms at G=16,384), the
-card's name and power limit, and last
+Prints one JSON line of kernels (K1's, K4's and K5's rows also carry their
+launch shape and ptxas line, and K4's its ms at G=16,384), the card's name and
+power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
 """
@@ -45,7 +52,7 @@ is no CUDA device, when the package is missing, or when any check fails.
 import json
 import math
 import os
-import subprocess
+import re
 import sys
 import time
 import traceback
@@ -56,11 +63,15 @@ G = 4096
 HIDDEN = 64
 CYCLES = 3
 GENERATIONS = 3
+ROLLOUTS = ("fused", "engine", "games_last")
+# K1's ptxas names: <layout (1: games-last), P, R, T>, constant at the flagship, 0 for runtime sizes.
+K1_INSTANCES = tuple(f"resolve_turn_kernel<{layout},{sizes}>" for layout in (0, 1) for sizes in ("4,4,6", "0,0,0"))
 PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
 LEARN_ITERS = 8
 ABLATE_CHAIN = 32          # generations per timed ablation chain (the JAX script chained 256)
+REPS = 5                   # a kernel's per-call ms: the median of this many timed runs
 ABLATE_G_WIDE = 16_384     # 4x the main path's games: 512 blocks of 32
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
                 hidden_sizes=(HIDDEN,), minibatch=64)
@@ -80,25 +91,6 @@ SUBPLAY_OPS = 6 * 4 + 10  # row search and cheapest row over R=4 rows, update
 
 def log(*a):
     print(*a, flush=True)
-
-
-def smi_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi: n/a"
-
-
-def cuda_ms(fn, iters):
-    """Mean milliseconds per call of ``fn`` over ``iters`` calls (CUDA events, after warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def host_seconds(fn, iters):
@@ -158,6 +150,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_leaves
+    from rl6nimmt_torch.experiments.kernel_times import (check_yardsticks, cuda_ms, device_ms, smi_line,
+                                                         yardsticks)
     from rl6nimmt_torch.buffers import per_clone, per_init, per_init_kd
     from rl6nimmt_torch.engine import EnvConfig, deal, step
     from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
@@ -168,7 +162,8 @@ def main():
                                                        make_act_insert_kernel, make_act_rollout_kernel)
     from rl6nimmt_torch.ops.game_kernel import (deal_games, deal_games_plain, play_random_games,
                                                 play_random_games_plain)
-    from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+    from rl6nimmt_torch.ops.step_kernel import (resolve_turn, resolve_turn_plain, resolve_turn_t,
+                                                resolve_turn_t_plain)
     from rl6nimmt_torch.runtime.vector import (draw_cycle_randomness, dqn_replay_example,
                                                make_dqn_selfplay_step, make_random_rollout_generations)
 
@@ -184,8 +179,15 @@ def main():
     _build.library()
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
-    for name, info in sorted(_build.BUILD_INFO.get("ptxas", {}).items()):
+    ptxas = _build.BUILD_INFO["ptxas"]     # from this build, or kept beside a built library
+    for name, info in sorted(ptxas.items()):
         log(f"[1] ptxas {name}: {info}")
+    # K1's four instances (two layouts, flagship and runtime sizes): nothing in local memory.
+    k1_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES}
+    if any(not all(re.search(rf"(?<![\d.]){z}", v) for z in ("0 bytes stack frame", "0 bytes spill stores",
+                                                              "0 bytes spill loads"))
+           for v in k1_ptxas.values()):
+        raise AssertionError(f"K1 instances must use no stack and no spills: {k1_ptxas}")
 
     cfg = EnvConfig(4)
     dqn = DQNConfig(**FLAGSHIP)
@@ -199,20 +201,39 @@ def main():
     play = make_act_rollout_kernel(cfg, G, HIDDEN)
 
     # ------------------------------------------------------------ phase 2
-    errs, k1_inputs = {}, None
+    errs, k1_inputs = {"resolve_turn": 0.0, "resolve_turn_t": 0.0}, None
+    R, T = cfg.num_rows, cfg.threshold
     state = deal(cfg, 1, G, device=dev)
     for t in range(cfg.max_turns):
         hs = state.hands_sorted
         r = torch.floor(torch.rand(hs.shape[:2], generator=gen, device=dev) * (hs >= 0).sum(-1)).long()
         acts = torch.gather(hs, -1, r[..., None]).squeeze(-1).contiguous()
+        board_t, len_t = state.board.reshape(G, R * T).T.contiguous(), state.row_len.T.contiguous()
         if t == 5:
             k1_inputs = (state.board, state.row_len, acts)
+            k1t_inputs = (board_t, len_t, acts)
         out_k = resolve_turn(cfg, state.board, state.row_len, acts)
         out_p = resolve_turn_plain(cfg, state.board, state.row_len, acts)
         if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
             raise AssertionError(f"K1 resolve_turn differs from its twin at turn {t}")
-        errs["resolve_turn"] = max(errs.get("resolve_turn", 0.0), max_abs_err(zip(out_k, out_p)))
+        errs["resolve_turn"] = max(errs["resolve_turn"], max_abs_err(zip(out_k, out_p)))
+        out_t = resolve_turn_t(cfg, board_t, len_t, acts)
+        out_tp = resolve_turn_t_plain(cfg, board_t, len_t, acts)
+        row_major = (out_k[0].reshape(G, R * T).T, out_k[1].T, out_k[2].T)
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(out_t, out_tp, row_major)):
+            raise AssertionError(f"K1 resolve_turn_t differs from its twin or from resolve_turn at turn {t}")
+        errs["resolve_turn_t"] = max(errs["resolve_turn_t"], max_abs_err(zip(out_t, out_tp)))
         state, _ = step(cfg, state, acts)
+    # The launch route reads the current stream on every call: a launch under
+    # torch.cuda.stream(side) goes on side and gives the twin's result there.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = _build.stream_reader()(dev.index or 0) == side.cuda_stream
+        out_s = resolve_turn(cfg, *k1_inputs)
+    side.synchronize()
+    if not on_side or not all(torch.equal(a, b) for a, b in zip(out_s, resolve_turn_plain(cfg, *k1_inputs))):
+        raise AssertionError("K1 under torch.cuda.stream(side): wrong stream or wrong result")
     out_k, out_p = deal_games(cfg, 77, G, device=dev), deal_games_plain(cfg, 77, G, dev)
     if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
         raise AssertionError("K2 deal_games differs from its twin")
@@ -229,7 +250,9 @@ def main():
     if k4_agree < 0.999 or not (torch.equal(ok[:, same], op[:, same]) and torch.equal(rk[:, same], rp[:, same])):
         raise AssertionError(f"K4 act_rollout vs twin: action agreement {k4_agree}")
     errs["act_rollout"] = max_abs_err([(ok[:, same], op[:, same]), (rk[:, same], rp[:, same])])
-    log(f"[2] K1-K3 bit-exact vs twins at G={G}; K4 deals exact, action agreement {k4_agree:.6f}, "
+    log(f"[2] K1-K3 bit-exact vs twins at G={G} (K1 in both layouts on all {cfg.max_turns} turns, the "
+        f"games-last entry == the row-major one; a launch under torch.cuda.stream is on that stream); "
+        f"K4 deals exact, action agreement {k4_agree:.6f}, "
         f"{int(same.sum())}/{G} games identical")
     k5_agree, k5_games, errs["act_insert"] = insert_twin_agreement(cfg, G, HIDDEN, KD_CAPACITY, KD_PTR, 81, k4_args)
     if k5_agree < 0.999 or errs["act_insert"] != 0.0:
@@ -256,8 +279,9 @@ def main():
         "kernel": lambda: per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
         "insert": lambda: per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev),
     }
-    rollouts = {mode: make_random_rollout_generations(cfg, G, GENERATIONS, fused=(mode == "fused"), device=dev)
-                for mode in ("fused", "engine")}
+    rollouts = {mode: make_random_rollout_generations(cfg, G, GENERATIONS, fused=(mode == "fused"),
+                                                      games_last=(mode == "games_last"), device=dev)
+                for mode in ROLLOUTS}
     train_state = {}
     per_unit = {}
     _build.reset_launches()
@@ -292,6 +316,7 @@ def main():
     # Each path launches exactly its own kernels, per generation or cycle.
     engine_path = {"deal_games": 1, "resolve_turn": cfg.max_turns}
     expected = {"rollout_engine": engine_path, "rollout_fused": {"play_random_games": 1},
+                "rollout_games_last": {"deal_games": 1, "resolve_turn_t": cfg.max_turns},
                 "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1},
                 "cycle_insert": {"act_insert": 1}}
     missing = sorted({k for want in expected.values() for k in want if launches[k] == 0})
@@ -301,10 +326,11 @@ def main():
         got = {k: v for k, v in per_unit[path].items() if v}
         if got != want:
             raise AssertionError(f"{path} launched {got} per unit, expected {want}")
-    if not (torch.equal(totals["fused"][0], totals["engine"][0])
-            and float(totals["fused"][1]) == float(totals["engine"][1])):
-        raise AssertionError("fused (K3) and engine (K2+K1) random rollouts disagree on one seed")
-    log(f"[4] random rollouts: fused == engine path over {GENERATIONS} generations "
+    for mode in ("engine", "games_last"):
+        if not (torch.equal(totals["fused"][0], totals[mode][0])
+                and float(totals["fused"][1]) == float(totals[mode][1])):
+            raise AssertionError(f"fused (K3) and {mode} random rollouts disagree on one seed")
+    log(f"[4] random rollouts: fused == engine path == games-last over {GENERATIONS} generations "
         f"(mean score {float(totals['fused'][0].float().mean()) / GENERATIONS:.4f}, checksum {float(totals['fused'][1])})")
 
     for mode, cycle in cycles.items():
@@ -321,9 +347,26 @@ def main():
         f"(modes {', '.join(cycles)})")
 
     # ------------------------------------------------------------ phase 5
+    # The rates and every per-call time come before the first profiler session
+    # of this process (device_ms, profile_cycle): a session may slow later host work.
     P, R, T, H, S, A = cfg.num_players, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.state_length, cfg.num_actions
     turns = cfg.max_turns
+    steps_per_gen = G * turns
+    rates = {}
+    for mode in ROLLOUTS:
+        one = make_random_rollout_generations(cfg, G, 1, fused=(mode == "fused"), games_last=(mode == "games_last"),
+                                              device=dev)
+        sec = host_seconds(lambda: one(4242), 10 if mode == "fused" else 3)
+        rates[f"random_rollout_{mode}_env_steps_per_s"] = steps_per_gen / sec
+    for mode, cycle in cycles.items():
+        p, tgt, o, buf = train_state[mode]
+        cgen = torch.Generator(device=dev).manual_seed(11)
+        sec = host_seconds(lambda: cycle(p, tgt, o, buf, cgen, 0.0), 3)
+        rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / sec
+    for k, v in rates.items():
+        log(json.dumps({"metric": k, "value": v, "card": card}))
     k1_b, k1_l, k1_a = k1_inputs
+    k1t_b, k1t_l, k1t_a = k1t_inputs
     insert = make_act_insert_kernel(cfg, G, HIDDEN, KD_CAPACITY, 0.99, dqn.n_steps)
     k5_planes = (torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
                  torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
@@ -331,6 +374,8 @@ def main():
     timing = {
         "resolve_turn": (lambda: resolve_turn(cfg, k1_b, k1_l, k1_a),
                          lambda: resolve_turn_plain(cfg, k1_b, k1_l, k1_a), 200, 20),
+        "resolve_turn_t": (lambda: resolve_turn_t(cfg, k1t_b, k1t_l, k1t_a),
+                           lambda: resolve_turn_t_plain(cfg, k1t_b, k1t_l, k1t_a), 200, 20),
         "deal_games": (lambda: deal_games(cfg, 5, G, device=dev),
                        lambda: deal_games_plain(cfg, 5, G, dev), 200, 5),
         "play_random_games": (lambda: play_random_games(cfg, 6, G, device=dev),
@@ -354,12 +399,15 @@ def main():
     k4_flops = G * sum((S - H) * HIDDEN * 2 + P * H * HIDDEN * 2 + P * (H - t) * HIDDEN * 2 for t in range(turns))
     # K5: the same play, then every transition's column of the three planes and the rewards out.
     k5_bytes = weight_bytes + turns * P * G * (2 * S_PAD + 4 * SCAL_ROWS) + 4 * turns * P * G
-    work = {"resolve_turn": (k1_bytes, k1_ops), "deal_games": (k2_bytes, k2_ops),
+    work = {"resolve_turn": (k1_bytes, k1_ops), "resolve_turn_t": (k1_bytes, k1_ops),
+            "deal_games": (k2_bytes, k2_ops),
             "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops),
             "act_insert": (k5_bytes, k4_flops)}
     meta = {
         "resolve_turn": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
                          f"board i32[{G},{R},{T}], row_len i32[{G},{R}], actions i32[{G},{P}]"),
+        "resolve_turn_t": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
+                           f"board_t i32[{R * T},{G}], row_len_t i32[{R},{G}], actions i32[{G},{P}]"),
         "deal_games": ("rl6nimmt_torch/csrc/game_kernel.cu", "rl6nimmt_tpu/ops/game_kernel.py:290",
                        f"seed -> board i32[{G},{R},{T}], row_len, hands i32[{G},{P},{H}]"),
         "play_random_games": ("rl6nimmt_torch/csrc/game_kernel.cu", "rl6nimmt_tpu/ops/game_kernel.py:143",
@@ -370,43 +418,37 @@ def main():
                        f"K4's weights, ptr {KD_PTR} -> planes i8[{S_PAD},{KD_CAPACITY}] x2, "
                        f"f32[{SCAL_ROWS},{KD_CAPACITY}] in place, rewards i32[{turns * P},{G}]"),
     }
+    # The kernel each wrapper launches, as its profiler events name it.
+    kernel_of = {"resolve_turn": "resolve_turn_kernel", "resolve_turn_t": "resolve_turn_kernel",
+                 **{k: f"{k}_kernel" for k in _build.LAUNCHES if not k.startswith("resolve_turn")}}
     rows = []
     for name, (kern, plain, it_k, it_p) in timing.items():
-        ms = cuda_ms(kern, it_k)
-        plain_ms = cuda_ms(plain, it_p)
         b_ms, b_by = bound_ms(*work[name])
-        src, replaces, shape = meta[name]
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        rows.append({"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": cuda_ms(kern, it_k, REPS),
+                     "device_ms": None, "plain_ms": cuda_ms(plain, it_p), "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "library_device_ms": None})
+    for row in rows:
+        name, (kern, _, it_k, _) = row["name"], timing[row["name"]]
+        row["device_ms"] = device_ms(kern, it_k, kernel_of[name])
         per = {k: v[name] for k, v in per_unit.items() if v[name]}
-        log(json.dumps({"kernel": name, "ms": ms, "plain_ms": plain_ms, "launches_per_cycle": per,
-                        "shape": shape, "card": card}))
-    # The play loop's launch shape, as the built library has it, and resources (K4, K5).
-    ptxas = _build.BUILD_INFO.get("ptxas", {})
-
+        log(json.dumps({"kernel": name, "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+                        "launches_per_cycle": per, "shape": meta[name][2], "card": card}))
+    # Launch shapes, as the built library has them, and resources (K1, K4, K5).
     def ptxas_of(kname):
         return ptxas.get(f"{kname}_kernel", "n/a")
 
     games_per_block = _build.library().rl6_play_games()
+    k1_games, k1_threads = _build.library().rl6_resolve_games(), _build.library().rl6_resolve_threads()
     for row in rows:
         if row["name"] in ("act_rollout", "act_insert"):
             row.update(ptxas=ptxas_of(row["name"]), games_per_block=games_per_block,
                        blocks=-(-G // games_per_block))
+        if row["name"].startswith("resolve_turn"):
+            flag = "1" if row["name"] == "resolve_turn_t" else "0"
+            row.update(ptxas=ptxas[f"resolve_turn_kernel<{flag},{P},{R},{T}>"],
+                       games_per_block=k1_games, blocks=-(-G // k1_games), threads=k1_threads)
 
-    steps_per_gen = G * turns
-    rates = {}
-    for mode in ("fused", "engine"):
-        one = make_random_rollout_generations(cfg, G, 1, fused=(mode == "fused"), device=dev)
-        sec = host_seconds(lambda: one(4242), 10 if mode == "fused" else 3)
-        rates[f"random_rollout_{mode}_env_steps_per_s"] = steps_per_gen / sec
-    for mode, cycle in cycles.items():
-        p, tgt, o, buf = train_state[mode]
-        cgen = torch.Generator(device=dev).manual_seed(11)
-        sec = host_seconds(lambda: cycle(p, tgt, o, buf, cgen, 0.0), 3)
-        rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / sec
-    for k, v in rates.items():
-        log(json.dumps({"metric": k, "value": v, "card": card}))
     for mode, cycle in cycles.items():
         p, tgt, o, buf = train_state[mode]
         cgen = torch.Generator(device=dev).manual_seed(12)
@@ -471,8 +513,10 @@ def main():
             play_v = make_act_ablate_kernel(acfg, g, ablate.HID, v)
             per_launch[g] = cuda_ms(lambda: play_v(7, *aw), 20)
             bounds[g] = bound_ms(*ablate_work(v, g))
+            if g == G:
+                dev_ms = device_ms(lambda: play_v(7, *aw), 20, kernel_of[kname])
         log(json.dumps({"ablation": v, "kernel": kname, "ms_per_generation": ms_gen,
-                        "ms_per_launch": {str(g): x for g, x in per_launch.items()},
+                        "ms_per_launch": {str(g): x for g, x in per_launch.items()}, "device_ms": dev_ms,
                         "bound_ms": {str(g): b[0] for g, b in bounds.items()}, "bound_by": bounds[G][1],
                         "ptxas": ptxas_of(kname), "card": card}))
         if v == "full":
@@ -482,14 +526,12 @@ def main():
         rows.append({"name": kname, "route": "cuda", "source": "rl6nimmt_torch/csrc/act_ablate_kernel.cu",
                      "replaces": "experiments/act_rollout_ablate.py:47", "launches": path_launches[kname],
                      "main_path_launches": launches[kname], "max_abs_err": errs[kname], "ms": per_launch[G],
-                     "plain_ms": plain_ms, "bound_ms": bounds[G][0], "bound_by": bounds[G][1],
-                     "library_ms": None})
+                     "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bounds[G][0], "bound_by": bounds[G][1],
+                     "library_ms": None, "library_device_ms": None})
 
     inp = probe_exp.probe_inputs(dev)
-    library = {"k1": lambda: inp["C"].t() @ inp["W1"], "k2": lambda: inp["hands"].t().contiguous(),
-               "k3": lambda: torch.argmax(inp["H"], dim=1), "k4": lambda: inp["flat"].reshape(8, 128).clone(),
-               "k5": lambda: inp["S"].permute(1, 2, 0).reshape(1024, 47),
-               "k6": lambda: torch.einsum("fsl,fh->slh", inp["S2"], inp["W1b"]), "k7": None}
+    library = yardsticks(inp)
+    check_yardsticks(inp, library)   # each yardstick writes a fresh contiguous tensor
     body_line = {"k1": 53, "k2": 66, "k3": 75, "k4": 85, "k5": 96, "k6": 118, "k7": 134}
     for key, label, kernel, twin, args, exact in probe_exp.probes(inp):
         out = kernel(*args)
@@ -499,16 +541,20 @@ def main():
         ops = (2 * args[0].numel() * args[1].shape[-1] if key in ("k1", "k6", "k7")
                else args[0].numel() if key == "k3" else 0)
         b_ms, b_by = bound_ms(nbytes, ops)
-        ms = cuda_ms(lambda: kernel(*args), 200)
+        ms = cuda_ms(lambda: kernel(*args), 200, REPS)
+        dev_ms = device_ms(lambda: kernel(*args), 200, kernel_of[f"probe_{key}"])
         plain_ms = cuda_ms(lambda: twin(*args), 50)
-        lib_ms = cuda_ms(library[key], 200) if library[key] else None
-        log(json.dumps({"probe": key, "label": label, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bytes": nbytes, "ptxas": ptxas_of(f"probe_{key}"), "card": card}))
+        lib_ms = cuda_ms(library[key], 200, REPS) if library[key] else None
+        lib_dev_ms = device_ms(library[key], 200) if library[key] else None
+        log(json.dumps({"probe": key, "label": label, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "bytes": nbytes,
+                        "ptxas": ptxas_of(f"probe_{key}"), "card": card}))
         rows.append({"name": f"probe_{key}", "route": "cuda", "source": "rl6nimmt_torch/csrc/probe_ops.cu",
                      "replaces": f"experiments/probe_pallas_ops.py:{body_line[key]}",
                      "launches": path_launches[f"probe_{key}"], "main_path_launches": launches[f"probe_{key}"],
-                     "max_abs_err": probe_results[key]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                     "max_abs_err": probe_results[key]["max_abs_err"], "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -149,18 +149,24 @@ struct Rows {
 };
 
 // Aggregates of a materialised board (board[r*T + t], -1 for empty cells).
+// Every cell is read and masked by the row length, as the TPU's
+// _row_aggregates does, so no load waits on another (K1 only).
 __device__ inline void row_aggregates(const Cfg& c, const int* board, const int* row_len, Rows& a) {
   for (int r = 0; r < c.R; ++r) {
-    int pts = 0, csum = 0;
-    for (int t = 0; t < row_len[r]; ++t) {
+    const int len = row_len[r];
+    int pts = 0, csum = 0, last = 0;
+    for (int t = 0; t < c.T; ++t) {
       const int cell = board[r * c.T + t];
-      pts += card_points(cell);
-      csum += cell;
+      if (t < len) {
+        pts += card_points(cell);
+        csum += cell;
+      }
+      if (t == len - 1) last = cell;
     }
-    a.len[r] = row_len[r];
+    a.len[r] = len;
     a.pts[r] = pts;
     a.csum[r] = csum;
-    a.last[r] = board[r * c.T + row_len[r] - 1];
+    a.last[r] = last;
   }
 }
 

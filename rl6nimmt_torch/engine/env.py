@@ -159,21 +159,24 @@ def step_with(cfg: EnvConfig, state: EnvState, actions: torch.Tensor, resolve):
     cards = torch.arange(cfg.num_cards, device=actions.device, dtype=torch.int32)
     hands = state.hands & (cards != actions[..., None])
 
-    hs = state.hands_sorted
-    H = cfg.hand_size
-    slot = torch.arange(H, device=hs.device)
-    pos = torch.argmax((hs == actions[..., None]).to(torch.int8), dim=-1)   # unique slot
-    shifted = torch.cat([hs[..., 1:], torch.full_like(hs[..., :1], -1)], dim=-1)
-    hands_sorted = torch.where(slot >= pos[..., None], shifted, hs)
-
     return EnvState(
         board=board,
         row_len=row_len,
         hands=hands,
-        hands_sorted=hands_sorted,
+        hands_sorted=shift_hands(state.hands_sorted, actions),
         scores=state.scores - rewards,
         turn=state.turn + 1,
     ), rewards
+
+
+def shift_hands(hands_sorted: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    """Take each seat's played card out of its sorted, ``-1``-padded hand: the
+    cards above it move down one slot."""
+    hs = hands_sorted
+    slot = torch.arange(hs.shape[-1], device=hs.device)
+    pos = torch.argmax((hs == actions[..., None]).to(torch.int8), dim=-1)   # unique slot
+    shifted = torch.cat([hs[..., 1:], torch.full_like(hs[..., :1], -1)], dim=-1)
+    return torch.where(slot >= pos[..., None], shifted, hs)
 
 
 # ---------------------------------------------------------------- observations

@@ -7,8 +7,13 @@ link step makes ``librl6kernels.so`` under ``rl6nimmt_torch/_build/<hash>/``
 (listed in ``.gitignore``).  The hash covers the sources and the flags, so an
 edited kernel is rebuilt.  Nothing is built at import time.
 
-Every launcher returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.  :data:`LAUNCHES` counts the kernel launches per wrapper.
+Launch route: each wrapper holds a :class:`Launcher` per C entry.  Its
+first call builds and loads the library and binds the entry; every call then
+passes the raw handle of PyTorch's current stream on the tensors' card
+(``torch._C._cuda_getCurrentRawStream``, so ``torch.cuda.stream(s)`` is
+honoured without building a ``torch.cuda.Stream`` object), raises on the
+``cudaGetLastError()`` code the entry returns, and adds one to
+:data:`LAUNCHES`, the launch count per wrapper.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -32,15 +38,16 @@ HEADERS = ("game.cuh", "act_play.cuh", "row_major_emit.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# Plain integer launch counters, one per kernel: K1-K5 (the main path), K6's
-# three ablation variants and K7's seven probe bodies.
+# Plain integer launch counters, one per kernel: K1 in its two layouts and K2-K5
+# (the main path), K6's three ablation variants and K7's seven probe bodies.
 ABLATE_VARIANTS = ("env", "obs", "mm")      # in the order of rl6_act_ablate's variant codes 0-2
 PROBES = tuple(f"k{i}" for i in range(1, 8))
-LAUNCHES = {"resolve_turn": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0,
+LAUNCHES = {"resolve_turn": 0, "resolve_turn_t": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0,
             "act_insert": 0, **{f"act_ablate_{v}": 0 for v in ABLATE_VARIANTS},
             **{f"probe_{k}": 0 for k in PROBES}}
 
-# Filled by the first build in this process: seconds, and ptxas lines per kernel.
+# Filled by the first build() in this process: seconds of nvcc when it compiled,
+# and ptxas lines per kernel (kept beside the library in ptxas.json).
 BUILD_INFO: dict = {}
 
 _VP = ctypes.c_void_p
@@ -51,6 +58,9 @@ _F = ctypes.c_float
 
 SIGNATURES = {
     "rl6_resolve_turn": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "rl6_resolve_turn_t": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "rl6_resolve_games": [],
+    "rl6_resolve_threads": [],
     "rl6_deal_games": [_U64, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_play_random_games": [_U64, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_act_rollout": [_U64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -97,11 +107,14 @@ def _digest() -> str:
 
 def _kernel_name(mangled: str) -> str:
     """The last component of a mangled nested name: ``_ZN<len><ns><len><name>E...``
-    (the kernels sit in an anonymous namespace) gives ``<name>``."""
+    (the kernels sit in an anonymous namespace) gives ``<name>``, and a
+    template instance ``<name>I<args>E`` gives ``<name><a,b,...>``."""
     rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
     while (m := re.match(r"\d+", rest)):
         n = int(m.group())
         name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if (t := re.match(r"I((?:L[a-z]+n?\d+E)+)E", rest)):
+        name += "<" + ",".join(re.findall(r"L[a-z]+(n?\d+)E", t.group(1))) + ">"
     return name
 
 
@@ -119,9 +132,12 @@ def _parse_ptxas(text: str) -> dict:
 
 
 def build() -> Path:
-    """Compile the kernels (if not built yet for these sources) and return the .so path."""
+    """Compile the kernels (if not built yet for these sources) and return the .so
+    path.  Either way ``BUILD_INFO["ptxas"]`` holds the build's ptxas lines."""
     target = BUILD_ROOT / _digest() / "librl6kernels.so"
-    if target.exists():
+    info = target.with_name("ptxas.json")
+    if target.exists() and info.exists():
+        BUILD_INFO.setdefault("ptxas", json.loads(info.read_text()))
         return target
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -144,8 +160,10 @@ def build() -> Path:
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+    (tmp / "ptxas.json").write_text(json.dumps(ptxas, indent=1, sort_keys=True))
     target.parent.mkdir(parents=True, exist_ok=True)
-    os.replace(lib, target)            # atomic: concurrent builds race safely
+    os.replace(tmp / "ptxas.json", info)   # atomic, and before the library: concurrent builds race safely
+    os.replace(lib, target)
     shutil.rmtree(tmp, ignore_errors=True)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
     return target
@@ -162,14 +180,34 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(code: int, name: str) -> None:
-    """Raise if a launcher reported a CUDA error."""
-    if code != 0:
-        raise RuntimeError(f"CUDA launch of {name} failed with cudaError {code}")
+def stream_reader():
+    """``device_index -> raw cudaStream_t`` of PyTorch's current stream there.
 
-
-def stream_ptr(device) -> int:
-    """Raw handle of PyTorch's current stream on ``device``."""
+    The handle without a ``torch.cuda.Stream`` object, which
+    ``torch.cuda.current_stream(i).cuda_stream`` builds on every call; the
+    same function torch's compiled kernels read their stream with."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream
+
+
+class Launcher:
+    """One C entry of the library, bound on the first call.
+
+    ``launcher(device_index, *args)`` calls the entry with ``args`` and the
+    current stream of card ``device_index``, raises ``RuntimeError`` if the
+    launch failed, and counts it in ``LAUNCHES[counter]``.
+    """
+
+    __slots__ = ("entry", "counter", "fn", "stream")
+
+    def __init__(self, entry: str, counter: str):
+        self.entry, self.counter, self.fn, self.stream = entry, counter, None, None
+
+    def __call__(self, device_index: int, *args) -> None:
+        if self.fn is None:
+            self.fn, self.stream = getattr(library(), self.entry), stream_reader()
+        code = self.fn(*args, self.stream(device_index))
+        if code:
+            raise RuntimeError(f"CUDA launch of {self.counter} failed with cudaError {code}")
+        LAUNCHES[self.counter] += 1

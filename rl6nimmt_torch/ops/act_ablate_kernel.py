@@ -37,6 +37,7 @@ from .step_kernel import resolve_turn_plain
 
 VARIANTS = _build.ABLATE_VARIANTS + ("full",)
 _CODE = {v: i for i, v in enumerate(_build.ABLATE_VARIANTS)}   # rl6_act_ablate's variant argument
+_ABLATE = {v: _build.Launcher("rl6_act_ablate", f"act_ablate_{v}") for v in _build.ABLATE_VARIANTS}
 
 
 def _check_variant(variant: str) -> None:
@@ -92,7 +93,7 @@ def make_act_ablate_kernel(cfg: EnvConfig, num_games: int, hidden: int, variant:
     _check_kernel_cfg(cfg, hidden)
     G, P, S = num_games, cfg.num_players, cfg.state_length
     n_turns = cfg.max_turns
-    counter = f"act_ablate_{variant}"
+    counter, launch = f"act_ablate_{variant}", _ABLATE.get(variant)
 
     def play(seed, w1, b1, wa, ba):
         seed = _check_seed(seed)
@@ -107,16 +108,11 @@ def make_act_ablate_kernel(cfg: EnvConfig, num_games: int, hidden: int, variant:
             obs = torch.empty((n_turns + 1, G, P, S), dtype=torch.int8, device=dev)
         actions = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
         rewards = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
-        if G == 0:
-            return obs, actions, rewards
-        code = _build.library().rl6_act_ablate(
-            _CODE[variant], seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            0 if obs is None else obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
-            G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
-            hidden, n_turns, int(cfg.include_summaries), _build.stream_ptr(dev),
-        )
-        _build.check(code, counter)
-        _build.LAUNCHES[counter] += 1
+        if G:
+            launch(dev.index, _CODE[variant], seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                   0 if obs is None else obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
+                   G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
+                   hidden, n_turns, int(cfg.include_summaries))
         return obs, actions, rewards
 
     return play

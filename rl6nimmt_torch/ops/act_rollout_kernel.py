@@ -41,6 +41,9 @@ from .step_kernel import resolve_turn_plain
 NEG_INF = -1e9
 MAX_HIDDEN = 256
 
+_ROLLOUT = _build.Launcher("rl6_act_rollout", "act_rollout")
+_INSERT = _build.Launcher("rl6_act_insert", "act_insert")
+
 
 def act_rollout_plain(cfg: EnvConfig, seed: int, num_games: int, w1, b1, wa, ba):
     """Plain twin of K4: same deals (Philox), torch matmuls, masked argmax."""
@@ -106,16 +109,11 @@ def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
         obs = torch.empty((n_turns + 1, G, P, S), dtype=torch.int8, device=dev)
         actions = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
         rewards = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
-        if G == 0:
-            return obs, actions, rewards
-        code = _build.library().rl6_act_rollout(
-            seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
-            G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
-            hidden, n_turns, int(cfg.include_summaries), _build.stream_ptr(dev),
-        )
-        _build.check(code, "act_rollout")
-        _build.LAUNCHES["act_rollout"] += 1
+        if G:
+            _ROLLOUT(dev.index, seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                     obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
+                     G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
+                     hidden, n_turns, int(cfg.include_summaries))
         return obs, actions, rewards
 
     return play
@@ -217,17 +215,12 @@ def make_act_insert_kernel(cfg: EnvConfig, num_games: int, hidden: int, capacity
         if dev.type != "cuda":
             raise ValueError(f"act_insert: unsupported device {dev}")
         rewards = torch.empty((T * P, G), dtype=torch.int32, device=dev)
-        if G == 0:
-            return state, nxt, scal, rewards
-        code = _build.library().rl6_act_insert(
-            seed, ptr, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            state.data_ptr(), nxt.data_ptr(), scal.data_ptr(), rewards.data_ptr(),
-            G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards, hidden, T,
-            int(cfg.include_summaries), capacity, S_PAD, SCAL_ROWS, gamma, n_steps,
-            int(reward_lag), _build.stream_ptr(dev),
-        )
-        _build.check(code, "act_insert")
-        _build.LAUNCHES["act_insert"] += 1
+        if G:
+            _INSERT(dev.index, seed, ptr, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                    state.data_ptr(), nxt.data_ptr(), scal.data_ptr(), rewards.data_ptr(),
+                    G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards, hidden, T,
+                    int(cfg.include_summaries), capacity, S_PAD, SCAL_ROWS, gamma, n_steps,
+                    int(reward_lag))
         return state, nxt, scal, rewards
 
     return insert

@@ -29,6 +29,9 @@ from . import _build
 from .philox import STREAM_DEAL, STREAM_PLAY, draw_below, philox_words
 from .step_kernel import resolve_turn_plain
 
+_DEAL = _build.Launcher("rl6_deal_games", "deal_games")
+_PLAY = _build.Launcher("rl6_play_random_games", "play_random_games")
+
 
 def _check_cfg(cfg: EnvConfig) -> None:
     if cfg.num_cards > 128 or cfg.num_players > 16 or cfg.num_rows > 8 \
@@ -126,16 +129,11 @@ def deal_games(cfg: EnvConfig, seed: int, num_games: int, device="cuda"):
     _check_cfg(cfg)
     G, P, H, R, T = num_games, cfg.num_players, cfg.hand_size, cfg.num_rows, cfg.threshold
     board = torch.empty((G, R, T), dtype=torch.int32, device=dev)
-    row_len = torch.empty((G, R), dtype=torch.int32, device=dev)
-    hands = torch.empty((G, P, H), dtype=torch.int32, device=dev)
-    if G == 0:
-        return board, row_len, hands
-    code = _build.library().rl6_deal_games(
-        seed, board.data_ptr(), row_len.data_ptr(), hands.data_ptr(),
-        G, P, R, T, H, cfg.num_cards, _build.stream_ptr(dev),
-    )
-    _build.check(code, "deal_games")
-    _build.LAUNCHES["deal_games"] += 1
+    row_len = board.new_empty((G, R))
+    hands = board.new_empty((G, P, H))
+    if G:
+        _DEAL(board.get_device(), seed, board.data_ptr(), row_len.data_ptr(), hands.data_ptr(),
+              G, P, R, T, H, cfg.num_cards)
     return board, row_len, hands
 
 
@@ -149,13 +147,7 @@ def play_random_games(cfg: EnvConfig, seed: int, num_games: int, device="cuda"):
     G, P = num_games, cfg.num_players
     rewards = torch.empty((G, P), dtype=torch.int32, device=dev)
     checksum = torch.empty((G,), dtype=torch.float32, device=dev)
-    if G == 0:
-        return rewards, checksum
-    code = _build.library().rl6_play_random_games(
-        seed, rewards.data_ptr(), checksum.data_ptr(),
-        G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
-        int(cfg.include_summaries), _build.stream_ptr(dev),
-    )
-    _build.check(code, "play_random_games")
-    _build.LAUNCHES["play_random_games"] += 1
+    if G:
+        _PLAY(rewards.get_device(), seed, rewards.data_ptr(), checksum.data_ptr(),
+              G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards, int(cfg.include_summaries))
     return rewards, checksum

@@ -11,8 +11,9 @@ One wrapper and one plain twin per probe body (``csrc/probe_ops.cu``):
 * ``dot_mask_argmax(h, wa, hand)`` k7: ``argmax_a where(a == hand, h @ wa, -1e9)``,
   ``h[S, L, 64]``, ``wa[64, A]``, ``hand`` int32 ``[S, L]`` -> int32 ``[S, L]``.
 
-On CUDA tensors each wrapper launches its kernel and counts it in
-``_build.LAUNCHES["probe_k<i>"]``; on CPU tensors it runs the ``*_plain`` twin,
+On CUDA tensors each wrapper launches its kernel through the library's launch
+route (``_build.Launcher``) and counts it in ``_build.LAUNCHES["probe_k<i>"]``;
+on CPU tensors it runs the ``*_plain`` twin,
 which spells out the body's arithmetic (an ordered sum over ``F``, an index
 gather, a first-maximum scan) rather than calling the one PyTorch op that
 computes the same function.
@@ -28,8 +29,12 @@ DOT_K = 64        # the dot probes' weight width (csrc/probe_ops.cu DOT_K)
 MASKED = -1e9     # k7's value for every column but the hand's
 
 
-def _check(name: str, specs):
-    """Raise unless each ``(arg, tensor, ndim, dtype)`` matches and all share one device."""
+_PROBE = {k: _build.Launcher(f"rl6_probe_{k}", f"probe_{k}") for k in _build.PROBES}
+
+
+def _check(name: str, specs) -> int:
+    """Raise unless each ``(arg, tensor, ndim, dtype)`` matches and all share
+    one device; return the card's index, or -1 for the CPU."""
     dev = specs[0][1].device
     for arg, x, ndim, dtype in specs:
         if x.dim() != ndim:
@@ -42,12 +47,7 @@ def _check(name: str, specs):
             raise ValueError(f"{name}: every tensor must be on {dev}, {arg} is on {x.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    return dev
-
-
-def _launch(key: str, fn: str, *args) -> None:
-    _build.check(getattr(_build.library(), fn)(*args), key)
-    _build.LAUNCHES[key] += 1
+    return -1 if dev.type == "cpu" else dev.index
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -74,21 +74,20 @@ def dot_lhs_t_plain(c, w):
     return out
 
 
-def _check_dot(name, c, ndim, w):
-    dev = _check(name, [("lhs", c, ndim, torch.float32), ("w", w, 2, torch.float32)])
+def _check_dot(name, c, ndim, w) -> int:
+    index = _check(name, [("lhs", c, ndim, torch.float32), ("w", w, 2, torch.float32)])
     if w.shape != (c.shape[0], DOT_K):
         raise ValueError(f"{name}: w must be [{c.shape[0]}, {DOT_K}], got {tuple(w.shape)}")
-    return dev
+    return index
 
 
 def dot_lhs_t(c, w):
-    dev = _check_dot("probe_k1", c, 2, w)
-    if dev.type == "cpu":
+    index = _check_dot("probe_k1", c, 2, w)
+    if index < 0:
         return dot_lhs_t_plain(c, w)
     F, N = c.shape
-    out = torch.empty((N, DOT_K), dtype=torch.float32, device=dev)
-    _launch("probe_k1", "rl6_probe_k1", c.data_ptr(), w.data_ptr(), out.data_ptr(), F, N,
-            _build.stream_ptr(dev))
+    out = c.new_empty((N, DOT_K))
+    _PROBE["k1"](index, c.data_ptr(), w.data_ptr(), out.data_ptr(), F, N)
     return out
 
 
@@ -98,13 +97,12 @@ def dot_3d_plain(s, w):
 
 
 def dot_3d(s, w):
-    dev = _check_dot("probe_k6", s, 3, w)
-    F, S, L = s.shape
-    if dev.type == "cpu":
+    index = _check_dot("probe_k6", s, 3, w)
+    if index < 0:
         return dot_3d_plain(s, w)
-    out = torch.empty((S, L, DOT_K), dtype=torch.float32, device=dev)
-    _launch("probe_k6", "rl6_probe_k6", s.data_ptr(), w.data_ptr(), out.data_ptr(), F, S * L,
-            _build.stream_ptr(dev))
+    F, S, L = s.shape
+    out = s.new_empty((S, L, DOT_K))
+    _PROBE["k6"](index, s.data_ptr(), w.data_ptr(), out.data_ptr(), F, S * L)
     return out
 
 
@@ -116,12 +114,12 @@ def transpose_2d_plain(x):
 
 
 def transpose_2d(x):
-    dev = _check("probe_k2", [("x", x, 2, torch.int32)])
-    if dev.type == "cpu":
+    index = _check("probe_k2", [("x", x, 2, torch.int32)])
+    if index < 0:
         return transpose_2d_plain(x)
     R, C = x.shape
-    out = torch.empty((C, R), dtype=torch.int32, device=dev)
-    _launch("probe_k2", "rl6_probe_k2", x.data_ptr(), out.data_ptr(), R, C, _build.stream_ptr(dev))
+    out = x.new_empty((C, R))
+    _PROBE["k2"](index, x.data_ptr(), out.data_ptr(), R, C)
     return out
 
 
@@ -132,13 +130,13 @@ def reshape_rows_plain(x, rows: int):
 
 
 def reshape_rows(x, rows: int):
-    dev = _check("probe_k4", [("x", x, 1, torch.int32)])
+    index = _check("probe_k4", [("x", x, 1, torch.int32)])
     if rows <= 0 or x.shape[0] % rows:
         raise ValueError(f"probe_k4: {x.shape[0]} elements do not split into {rows} rows")
-    if dev.type == "cpu":
+    if index < 0:
         return reshape_rows_plain(x, rows)
-    out = torch.empty((rows, x.shape[0] // rows), dtype=torch.int32, device=dev)
-    _launch("probe_k4", "rl6_probe_k4", x.data_ptr(), out.data_ptr(), x.shape[0], _build.stream_ptr(dev))
+    out = x.new_empty((rows, x.shape[0] // rows))
+    _PROBE["k4"](index, x.data_ptr(), out.data_ptr(), x.shape[0])
     return out
 
 
@@ -148,12 +146,12 @@ def transpose_3d_plain(x):
 
 
 def transpose_3d(x):
-    dev = _check("probe_k5", [("x", x, 3, torch.float32)])
-    if dev.type == "cpu":
+    index = _check("probe_k5", [("x", x, 3, torch.float32)])
+    if index < 0:
         return transpose_3d_plain(x)
     F, S, L = x.shape
-    out = torch.empty((S * L, F), dtype=torch.float32, device=dev)
-    _launch("probe_k5", "rl6_probe_k5", x.data_ptr(), out.data_ptr(), F, S * L, _build.stream_ptr(dev))
+    out = x.new_empty((S * L, F))
+    _PROBE["k5"](index, x.data_ptr(), out.data_ptr(), F, S * L)
     return out
 
 
@@ -165,12 +163,12 @@ def argmax_rows_plain(x):
 
 
 def argmax_rows(x):
-    dev = _check("probe_k3", [("x", x, 2, torch.float32)])
-    if dev.type == "cpu":
+    index = _check("probe_k3", [("x", x, 2, torch.float32)])
+    if index < 0:
         return argmax_rows_plain(x)
     N, A = x.shape
-    out = torch.empty((N, 1), dtype=torch.int32, device=dev)
-    _launch("probe_k3", "rl6_probe_k3", x.data_ptr(), out.data_ptr(), N, A, _build.stream_ptr(dev))
+    out = x.new_empty((N, 1), dtype=torch.int32)
+    _PROBE["k3"](index, x.data_ptr(), out.data_ptr(), N, A)
     return out
 
 
@@ -181,15 +179,14 @@ def dot_mask_argmax_plain(h, wa, hand):
 
 
 def dot_mask_argmax(h, wa, hand):
-    dev = _check("probe_k7", [("h", h, 3, torch.float32), ("wa", wa, 2, torch.float32),
-                              ("hand", hand, 2, torch.int32)])
+    index = _check("probe_k7", [("h", h, 3, torch.float32), ("wa", wa, 2, torch.float32),
+                                ("hand", hand, 2, torch.int32)])
     if h.shape[2] != DOT_K or wa.shape[0] != DOT_K or hand.shape != h.shape[:2]:
         raise ValueError(f"probe_k7: need h [S, L, {DOT_K}], wa [{DOT_K}, A], hand [S, L]; got "
                          f"{tuple(h.shape)}, {tuple(wa.shape)}, {tuple(hand.shape)}")
-    if dev.type == "cpu":
+    if index < 0:
         return dot_mask_argmax_plain(h, wa, hand)
     S, L, _ = h.shape
-    out = torch.empty((S, L), dtype=torch.int32, device=dev)
-    _launch("probe_k7", "rl6_probe_k7", h.data_ptr(), wa.data_ptr(), hand.data_ptr(), out.data_ptr(),
-            S * L, wa.shape[1], _build.stream_ptr(dev))
+    out = hand.new_empty((S, L))
+    _PROBE["k7"](index, h.data_ptr(), wa.data_ptr(), hand.data_ptr(), out.data_ptr(), S * L, wa.shape[1])
     return out

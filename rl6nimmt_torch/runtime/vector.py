@@ -2,10 +2,12 @@
 
 * :func:`make_random_rollout` / :func:`make_random_rollout_generations` --
   uniform-legal random self-play with the observation checksum kept live.
-  ``fused=True`` plays each generation in one K3 launch; otherwise the engine
-  path deals with K2 and resolves every turn with K1.  Both draw from the
-  same Philox streams, so for one seed they return the same totals and
-  checksums.
+  ``fused=True`` plays each generation in one K3 launch; ``games_last=True``
+  deals with K2 and keeps the board games-last through the generation,
+  resolving every turn with the games-last K1; otherwise the engine path
+  deals with K2 and resolves every turn with the row-major K1.  All three
+  draw from the same Philox streams, so for one seed they return the same
+  totals and checksums.
 * :func:`make_dqn_selfplay_step` -- the flagship Noisy-D3QN-PER-n-step
   cycle: greedy noisy acting (or eps-greedy for non-noisy configs), the
   lagged n-step harvest, a PER (or ring) insert, and ``learn_iters``
@@ -30,12 +32,13 @@ from torch.profiler import record_function
 from ..agents.dqn import Adam, DQNConfig, learn_noise, make_learn_step, q_network_spec, q_values
 from ..buffers.per import per_add_batch, per_mark_batch, per_sample, per_update
 from ..buffers.ring import ring_add_batch, ring_sample
-from ..engine.env import deal, init_from_deck, observe, step
+from ..engine.env import card_points_formula, deal, init_from_deck, observe, shift_hands, step
 from ..engine.state import EnvConfig
 from ..nets import draw_mlp_noise, noisy_effective_params
 from ..ops.act_rollout_check import turn_slice
 from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_rollout_kernel
-from ..ops.game_kernel import play_random_games, random_pick_words, random_picks
+from ..ops.game_kernel import deal_games, play_random_games, random_pick_words, random_picks
+from ..ops.step_kernel import resolve_turn_t
 from ..utils.device import resolve_device
 from ..utils.ops import onehot_select, uniform_index
 
@@ -71,26 +74,78 @@ def make_random_rollout(cfg: EnvConfig, num_games: int, device="cuda"):
     return rollout
 
 
+def observation_sum_t(cfg: EnvConfig, board_t, row_len_t, hands_sorted) -> torch.Tensor:
+    """Sum of every entry of every seat's observation (:func:`observe`'s
+    layout), read from the games-last board ``board_t [R*T, G]``, ``row_len_t
+    [R, G]``: the counterpart of the JAX ``observe_from``.  Every term is an
+    integer, so the float64 sum is exact and equals ``observe(...)[0].sum()``."""
+    R, T, P = cfg.num_rows, cfg.threshold, cfg.num_players
+    f64 = torch.float64
+    game = board_t.sum(dtype=f64) + P * board_t.shape[1]     # the board cells, the num_players entry
+    if cfg.include_summaries:
+        board = board_t.view(R, T, -1)
+        slot = torch.arange(T, device=board_t.device)[:, None]
+        lens = row_len_t[:, None, :]
+        game = (game + row_len_t.sum(dtype=f64) + torch.where(slot == lens - 1, board, 0).sum(dtype=f64)
+                + torch.where(slot < lens, card_points_formula(board), 0).sum(dtype=f64))
+    return hands_sorted.sum(dtype=f64) + P * game
+
+
+def _make_games_last_rollout(cfg: EnvConfig, num_games: int, device):
+    """``seed -> (total int32[G, P], checksum f64[])``: the engine path's games
+    with the board kept games-last across the generation (port of
+    ``_make_pallas_generations``).  K2 deals, the board is transposed once,
+    then per turn: the checksum from the games-last board, the pick from the
+    ``STREAM_PLAY`` words, the games-last K1 and the sorted-hand shift."""
+    G, R, T = num_games, cfg.num_rows, cfg.threshold
+
+    def rollout(seed: int):
+        board, row_len, hands_sorted = deal_games(cfg, seed, G, device=device)
+        board_t, len_t = board.reshape(G, R * T).T.contiguous(), row_len.T.contiguous()
+        words = random_pick_words(cfg, seed, G, device)
+        total = torch.zeros((G, cfg.num_players), dtype=torch.int32, device=device)
+        checksum = torch.zeros((), dtype=torch.float64, device=device)
+        for t in range(cfg.max_turns):
+            checksum = checksum + observation_sum_t(cfg, board_t, len_t, hands_sorted)
+            actions = random_picks(hands_sorted, words[t])
+            board_t, len_t, rewards_t = resolve_turn_t(cfg, board_t, len_t, actions)
+            total = total + rewards_t.T
+            hands_sorted = shift_hands(hands_sorted, actions)
+        return total, checksum
+
+    return rollout
+
+
 def make_random_rollout_generations(cfg: EnvConfig, num_games: int, generations: int,
-                                    fused: bool = False, device="cuda"):
+                                    fused: bool = False, games_last: bool = False, device="cuda"):
     """``seed -> (total int32[G, P], checksum f64[])`` over ``generations``
     back-to-back generations; generation ``g`` plays from seed ``seed + g``.
 
-    ``fused=True`` runs each generation as one K3 launch; otherwise the engine
-    path of :func:`make_random_rollout`.
+    ``fused=True`` runs each generation as one K3 launch; ``games_last=True``
+    (the JAX ``use_pallas=True``) keeps the board games-last and resolves each
+    turn with the games-last K1; otherwise the engine path of
+    :func:`make_random_rollout`.  The two options exclude each other.
     """
+    if fused and games_last:
+        raise ValueError("fused and games_last are two different rollouts: pass one of them")
     dev = resolve_device(device)
-    single = None if fused else make_random_rollout(cfg, num_games, dev)
+    if games_last:
+        play = _make_games_last_rollout(cfg, num_games, dev)
+    elif fused:
+        def play(seed: int):
+            rewards, cs = play_random_games(cfg, seed, num_games, device=dev)
+            return rewards, cs.sum(dtype=torch.float64)
+    else:
+        engine = make_random_rollout(cfg, num_games, dev)
+
+        def play(seed: int):
+            return engine(seed)[1:]
 
     def many(seed: int):
         total = torch.zeros((num_games, cfg.num_players), dtype=torch.int32, device=dev)
         checksum = torch.zeros((), dtype=torch.float64, device=dev)
         for g in range(generations):
-            if fused:
-                rewards, cs = play_random_games(cfg, seed + g, num_games, device=dev)
-                cs = cs.sum(dtype=torch.float64)
-            else:
-                _, rewards, cs = single(seed + g)
+            rewards, cs = play(seed + g)
             total = total + rewards
             checksum = checksum + cs
         return total, checksum

@@ -12,7 +12,7 @@ from rl6nimmt_tpu.engine import EnvConfig as JaxConfig
 from rl6nimmt_tpu.engine import env as jenv
 from rl6nimmt_tpu.engine.cards import POINTS_104 as JAX_POINTS
 from rl6nimmt_torch.engine import EnvConfig, POINTS_104, card_points_formula, env as tenv
-from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain, resolve_turn_t, resolve_turn_t_plain
 
 G = 8
 
@@ -90,6 +90,76 @@ def test_resolve_turn_cpu_tensor_takes_plain_twin():
     for x, y in zip(resolve_turn(cfg, s.board, s.row_len, acts),
                     resolve_turn_plain(cfg, s.board, s.row_len, acts)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("num_players", [2, 4, 6])
+def test_resolve_turn_t_plain_matches_jax_step(num_players):
+    """The games-last twin alone: board_t, row_len_t and rewards_t are the JAX
+    step's board, row lengths and rewards, games last, on every turn."""
+    jcfg, cfg = JaxConfig(num_players), EnvConfig(num_players)
+    init_j, step_j, _, _ = _jax_fns(jcfg)
+    rng = np.random.RandomState(11 * num_players)
+    n, R, T = 32, cfg.num_rows, cfg.threshold
+    js = init_j(jnp.asarray(_decks(rng, n)))
+    board_t = torch.tensor(np.asarray(js.board)).reshape(n, R * T).T.contiguous()
+    len_t = torch.tensor(np.asarray(js.row_len)).T.contiguous()
+    for turn in range(cfg.max_turns):
+        hs = np.asarray(js.hands_sorted)
+        counts = (hs >= 0).sum(-1)
+        picks = (rng.random_sample(counts.shape) * counts).astype(np.int64)
+        actions = np.take_along_axis(hs, picks[..., None], -1)[..., 0].astype(np.int32)
+        board_t, len_t, rew_t = resolve_turn_t_plain(cfg, board_t, len_t, torch.as_tensor(actions))
+        js, jr = step_j(js, jnp.asarray(actions))
+        assert board_t.shape == (R * T, n) and board_t.is_contiguous() and len_t.is_contiguous()
+        np.testing.assert_array_equal(np.asarray(js.board).reshape(n, R * T).T, board_t.numpy(),
+                                      err_msg=f"turn {turn}")
+        np.testing.assert_array_equal(np.asarray(js.row_len).T, len_t.numpy())
+        np.testing.assert_array_equal(np.asarray(jr).T, rew_t.numpy())
+
+
+def test_resolve_turn_t_cpu_tensor_takes_plain_twin():
+    cfg = EnvConfig(4)
+    s = tenv.init_from_deck(cfg, torch.as_tensor(_decks(np.random.RandomState(5), 6)))
+    board_t, len_t = s.board.reshape(6, 24).T.contiguous(), s.row_len.T.contiguous()
+    acts = s.hands_sorted[:, :, 0].contiguous()
+    got = resolve_turn_t(cfg, board_t, len_t, acts)
+    for x, y in zip(got, resolve_turn_t_plain(cfg, board_t, len_t, acts)):
+        assert torch.equal(x, y)
+    # ... and it is the row-major entry on the transposed state.
+    b, l, r = resolve_turn(cfg, s.board, s.row_len, acts)
+    assert torch.equal(got[0], b.reshape(6, 24).T) and torch.equal(got[1], l.T) and torch.equal(got[2], r.T)
+
+
+@pytest.mark.parametrize("case", ["board_shape", "row_len_shape", "actions_shape", "dtype", "contiguous",
+                                  "device", "one_device", "bounds"])
+def test_resolve_turn_t_validation(case):
+    cfg = EnvConfig(4)
+    s = tenv.init_from_deck(cfg, torch.as_tensor(_decks(np.random.RandomState(6), 8)))
+    args = [s.board.reshape(8, 24).T.contiguous(), s.row_len.T.contiguous(), s.hands_sorted[:, :, 0].contiguous()]
+    error, match = ValueError, {"board_shape": "board has shape", "row_len_shape": "row_len has shape",
+                                "actions_shape": "actions has shape", "contiguous": "contiguous",
+                                "device": "unsupported device", "one_device": "one device",
+                                "bounds": "P <= 16, R <= 8, T <= 8"}.get(case)
+    if case == "board_shape":          # the row-major board is not the games-last one
+        args[0] = s.board
+    elif case == "row_len_shape":
+        args[1] = s.row_len.contiguous()
+    elif case == "actions_shape":      # three seats' cards for a 4-seat config
+        args[2] = args[2][:, :3].contiguous()
+    elif case == "dtype":
+        args[2], error, match = args[2].long(), TypeError, "actions must be int32"
+    elif case == "contiguous":
+        args[1] = s.row_len.T
+    elif case == "device":
+        args = [x.to("meta") for x in args]
+    elif case == "one_device":
+        args[2] = args[2].to("meta")
+    elif case == "bounds":
+        big = EnvConfig(4, num_rows=9, num_cards=120)
+        cfg, args = big, [torch.full((54, 8), -1, dtype=torch.int32), torch.ones((9, 8), dtype=torch.int32),
+                          args[2]]
+    with pytest.raises(error, match=match):
+        resolve_turn_t(cfg, *args)
 
 
 def test_card_points_match_jax_table():

@@ -27,8 +27,9 @@ from rl6nimmt_torch.ops.game_kernel import (
     play_random_games,
     play_random_games_plain,
 )
-from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
-from rl6nimmt_torch.runtime.vector import dqn_replay_example, make_dqn_selfplay_step
+from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain, resolve_turn_t, resolve_turn_t_plain
+from rl6nimmt_torch.runtime.vector import (dqn_replay_example, make_dqn_selfplay_step,
+                                           make_random_rollout_generations)
 
 pytestmark = pytest.mark.gpu
 
@@ -58,6 +59,70 @@ def test_k1_resolve_turn_matches_twin(num_players, G):
         for a, b in zip(out_k, out_p):
             assert torch.equal(a, b)
         state, _ = step(cfg, state, acts)
+
+
+def _k1_both_layouts(cfg, G, dev, misaligned=False):
+    """Play random turns; at each, K1 in both layouts must equal both twins
+    and each other.  ``misaligned``: the row-major inputs start 4 bytes past a
+    16-byte boundary, so the kernel takes its 4-byte loads."""
+    R, T = cfg.num_rows, cfg.threshold
+    state = deal(cfg, 3, G, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(cfg.max_turns):
+        hs = state.hands_sorted
+        r = torch.floor(torch.rand(hs.shape[:2], generator=gen, device=dev) * (hs >= 0).sum(-1)).long()
+        acts = torch.gather(hs, -1, r[..., None]).squeeze(-1).contiguous()
+        board, row_len = state.board, state.row_len
+        if misaligned:
+            board, row_len, acts = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+                                    for x in (board, row_len, acts))
+        out_k = resolve_turn(cfg, board, row_len, acts)
+        for a, b in zip(out_k, resolve_turn_plain(cfg, board, row_len, acts)):
+            assert torch.equal(a, b)
+        board_t, len_t = board.reshape(G, R * T).T.contiguous(), row_len.T.contiguous()
+        out_t = resolve_turn_t(cfg, board_t, len_t, acts)
+        for a, b, c in zip(out_t, resolve_turn_t_plain(cfg, board_t, len_t, acts),
+                           (out_k[0].reshape(G, R * T).T, out_k[1].T, out_k[2].T)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        state, _ = step(cfg, state, acts)
+
+
+@pytest.mark.parametrize("G", [1, 31, 33, 4095])
+@pytest.mark.parametrize("num_players", range(2, 11))
+def test_k1_both_layouts_match_twins(num_players, G):
+    _k1_both_layouts(EnvConfig(num_players), G, _cuda())
+
+
+@pytest.mark.parametrize("shape,num_players,G,misaligned", [
+    ("most_smem", 16, 129, False),       # the largest P, R and T the wrapper accepts
+    ("long_rows", 7, 4095, False), ("default", 4, 1000, True)])
+def test_k1_largest_shape_and_misaligned_inputs(shape, num_players, G, misaligned):
+    _k1_both_layouts(EnvConfig(num_players, **SHAPES[shape]), G, _cuda(), misaligned)
+
+
+def test_k1_launches_on_the_current_stream():
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    s = deal(cfg, 5, 4096, device=dev)
+    acts = s.hands_sorted[:, :, 0].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _build.stream_reader()(dev.index or 0) == side.cuda_stream
+        out = resolve_turn(cfg, s.board, s.row_len, acts)
+    side.synchronize()
+    for a, b in zip(out, resolve_turn_plain(cfg, s.board, s.row_len, acts)):
+        assert torch.equal(a, b)
+
+
+def test_games_last_rollout_matches_fused_on_card():
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    _build.reset_launches()
+    games_last = make_random_rollout_generations(cfg, 4096, 2, games_last=True, device=dev)(17)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 2, "resolve_turn_t": 20}
+    fused = make_random_rollout_generations(cfg, 4096, 2, fused=True, device=dev)(17)
+    assert torch.equal(games_last[0], fused[0]) and float(games_last[1]) == float(fused[1])
 
 
 @pytest.mark.parametrize("num_players,G", [(4, 4096), (6, 333)])
@@ -225,6 +290,37 @@ def test_k6_ablation_entry_point_counts_its_launches():
         assert int(ablate.build(v, device=dev, games=256, chain=2)(3)) != 0
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "act_ablate_env": 2, "act_ablate_obs": 2, "act_ablate_mm": 2, "act_rollout": 2}
+
+
+# K7's bodies off the probe shapes: ragged blocks, rows that allow no 16-byte
+# access, a transpose of more input rows than one panel holds, inputs at a
+# 4-byte offset.
+K7_SHAPES = [("dot_lhs_t", (47, 131), (47, 64)), ("dot_lhs_t", (300, 37), (300, 64)),
+             ("dot_3d", (5, 3, 7), (5, 64)), ("transpose_2d", (300, 50), None), ("transpose_2d", (7, 13), None),
+             ("transpose_3d", (47, 3, 5), None), ("transpose_3d", (260, 2, 9), None), ("argmax_rows", (5000, 103), None),
+             ("argmax_rows", (33, 8), None), ("reshape_rows", (1027,), 13), ("reshape_rows", (4096,), 4)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("fn,shape,other", K7_SHAPES)
+def test_k7_bodies_at_other_shapes(fn, shape, other, misaligned):
+    from rl6nimmt_torch.ops import probe_ops
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def tensor(shape, dtype):
+        n = 1
+        for d in shape:
+            n *= d
+        flat = (torch.randn(n + 1, generator=gen, device=dev) * 50).to(dtype)
+        return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+    x = tensor(shape, torch.int32 if fn in ("transpose_2d", "reshape_rows") else torch.float32)
+    args = (x, tensor(other, torch.float32)) if fn.startswith("dot") else (x, other) if fn == "reshape_rows" else (x,)
+    ok, diff = compare(getattr(probe_ops, fn)(*args), getattr(probe_ops, f"{fn}_plain")(*args),
+                       exact=not fn.startswith("dot"))
+    assert ok, f"{fn} {shape}: max|diff| {diff}"
 
 
 @pytest.mark.parametrize("key", [f"k{i}" for i in range(1, 8)])

@@ -18,6 +18,7 @@ from rl6nimmt_tpu.engine import env as jenv
 from rl6nimmt_tpu.nets import draw_mlp_noise, mlp_init, noisy_effective_params
 from rl6nimmt_torch.agents.dqn import DQNConfig, q_network_spec
 from rl6nimmt_torch.engine import EnvConfig
+from rl6nimmt_torch.engine import env as tenv
 from rl6nimmt_torch.nets import noise_from_jax, params_from_jax
 from rl6nimmt_torch.ops.act_rollout_check import (
     greedy_replay_agreement,
@@ -31,7 +32,7 @@ from rl6nimmt_torch.ops.game_kernel import (
     play_random_games_plain,
     random_pick_words,
 )
-from rl6nimmt_torch.runtime.vector import make_random_rollout, make_random_rollout_generations
+from rl6nimmt_torch.runtime.vector import make_random_rollout, make_random_rollout_generations, observation_sum_t
 
 G = 16
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
@@ -81,6 +82,36 @@ def test_random_rollout_fused_and_engine_paths_agree():
     r, cs = play_random_games(cfg, 5, G, device="cpu")
     assert torch.equal(total, r) and float(checksum) == float(cs.double().sum())
     assert torch.equal(-state.scores, total)
+
+
+@pytest.mark.parametrize("num_players,include_summaries", [(2, True), (4, True), (6, True), (4, False)])
+def test_games_last_rollout_matches_engine_and_fused(num_players, include_summaries):
+    """The games-last rollout (K2, then the board games-last through the
+    games-last K1) plays the engine path's games: one seed, the same totals
+    and checksum as the engine path and as K3 (fused), bit for bit."""
+    cfg = EnvConfig(num_players, include_summaries=include_summaries)
+    runs = {kw: make_random_rollout_generations(cfg, G, 3, device="cpu", **{kw: True} if kw else {})(9)
+            for kw in ("games_last", "fused", None)}
+    for kw in ("fused", None):
+        assert torch.equal(runs["games_last"][0], runs[kw][0])
+        assert runs["games_last"][1].dtype == torch.float64
+        assert float(runs["games_last"][1]) == float(runs[kw][1])
+
+
+def test_observation_sum_t_is_the_observation_sum():
+    cfg = EnvConfig(4)
+    rng = np.random.RandomState(4)
+    state = tenv.init_from_deck(cfg, torch.as_tensor(np.stack([rng.permutation(104) for _ in range(G)])))
+    for t in range(4):   # a few turns in, rows of several lengths
+        state, _ = tenv.step(cfg, state, state.hands_sorted[:, :, t % 2].contiguous())
+    board_t = state.board.reshape(G, -1).T.contiguous()
+    got = observation_sum_t(cfg, board_t, state.row_len.T.contiguous(), state.hands_sorted)
+    assert float(got) == float(tenv.observe(cfg, state)[0].sum(dtype=torch.float64))
+
+
+def test_games_last_and_fused_exclude_each_other():
+    with pytest.raises(ValueError, match="fused and games_last"):
+        make_random_rollout_generations(EnvConfig(4), G, 1, fused=True, games_last=True, device="cpu")
 
 
 def _flagship(num_players=4, key=0):
