@@ -7,7 +7,7 @@ process per source), then:
 
 1. prints the card, its power limit, the torch/CUDA versions, the build time
    and ptxas registers/spills per kernel, and requires 0 B stack frame and 0
-   spills of every K1 instance;
+   spills of every K1, K2 and K3 instance;
 2. holds K1-K5 against their plain PyTorch twins at the main path's shapes
    (P=4, G=4096, hidden 64): K1-K3 bit-exact (K1 in both layouts, the
    games-last entry also against the row-major one on the transposed state,
@@ -42,9 +42,9 @@ process per source), then:
    line; and each probe's ms and device ms beside those of the one PyTorch
    call that computes the same function (a yardstick must not return a view).
 
-Prints one JSON line of kernels (K1's, K4's and K5's rows also carry their
-launch shape and ptxas line, and K4's its ms at G=16,384), the card's name and
-power limit, and last
+Prints one JSON line of kernels (K1's to K5's rows also carry their launch
+shape and ptxas line, K2's and K3's their ms and device ms at G=16,384, K4's
+its ms there), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
 """
@@ -66,6 +66,10 @@ GENERATIONS = 3
 ROLLOUTS = ("fused", "engine", "games_last")
 # K1's ptxas names: <layout (1: games-last), P, R, T>, constant at the flagship, 0 for runtime sizes.
 K1_INSTANCES = tuple(f"resolve_turn_kernel<{layout},{sizes}>" for layout in (0, 1) for sizes in ("4,4,6", "0,0,0"))
+# K2's and K3's: <P, R, T, H, C>, constant at the flagship, 0 for runtime sizes.
+K2_K3_FLAGSHIP = "4,4,6,10,104"
+K2_K3_INSTANCES = tuple(f"{k}_kernel<{sizes}>" for k in ("deal_games", "play_random_games")
+                        for sizes in (K2_K3_FLAGSHIP, "0,0,0,0,0"))
 PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
@@ -182,12 +186,13 @@ def main():
     ptxas = _build.BUILD_INFO["ptxas"]     # from this build, or kept beside a built library
     for name, info in sorted(ptxas.items()):
         log(f"[1] ptxas {name}: {info}")
-    # K1's four instances (two layouts, flagship and runtime sizes): nothing in local memory.
-    k1_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES}
+    # K1's four instances (two layouts, flagship and runtime sizes) and K2's and
+    # K3's two each (flagship and runtime sizes): nothing in local memory.
+    lean_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES + K2_K3_INSTANCES}
     if any(not all(re.search(rf"(?<![\d.]){z}", v) for z in ("0 bytes stack frame", "0 bytes spill stores",
                                                               "0 bytes spill loads"))
-           for v in k1_ptxas.values()):
-        raise AssertionError(f"K1 instances must use no stack and no spills: {k1_ptxas}")
+           for v in lean_ptxas.values()):
+        raise AssertionError(f"K1, K2 and K3 instances must use no stack and no spills: {lean_ptxas}")
 
     cfg = EnvConfig(4)
     dqn = DQNConfig(**FLAGSHIP)
@@ -428,18 +433,27 @@ def main():
                      "launches": launches[name], "max_abs_err": errs[name], "ms": cuda_ms(kern, it_k, REPS),
                      "device_ms": None, "plain_ms": cuda_ms(plain, it_p), "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None, "library_device_ms": None})
+    # K2 and K3 at 4x the games (512 blocks): chain-bound if the time barely moves.
+    wide = {"deal_games": lambda: deal_games(cfg, 5, ABLATE_G_WIDE, device=dev),
+            "play_random_games": lambda: play_random_games(cfg, 6, ABLATE_G_WIDE, device=dev)}
+    for row in rows:
+        if row["name"] in wide:
+            row[f"ms_g{ABLATE_G_WIDE}"] = cuda_ms(wide[row["name"]], 50, REPS)
     for row in rows:
         name, (kern, _, it_k, _) = row["name"], timing[row["name"]]
         row["device_ms"] = device_ms(kern, it_k, kernel_of[name])
+        if name in wide:
+            row[f"device_ms_g{ABLATE_G_WIDE}"] = device_ms(wide[name], 50, kernel_of[name])
         per = {k: v[name] for k, v in per_unit.items() if v[name]}
         log(json.dumps({"kernel": name, "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
                         "launches_per_cycle": per, "shape": meta[name][2], "card": card}))
-    # Launch shapes, as the built library has them, and resources (K1, K4, K5).
+    # Launch shapes, as the built library has them, and resources (K1-K5).
     def ptxas_of(kname):
         return ptxas.get(f"{kname}_kernel", "n/a")
 
     games_per_block = _build.library().rl6_play_games()
     k1_games, k1_threads = _build.library().rl6_resolve_games(), _build.library().rl6_resolve_threads()
+    k23_games, k23_threads = _build.library().rl6_game_games(), _build.library().rl6_game_threads()
     for row in rows:
         if row["name"] in ("act_rollout", "act_insert"):
             row.update(ptxas=ptxas_of(row["name"]), games_per_block=games_per_block,
@@ -448,6 +462,9 @@ def main():
             flag = "1" if row["name"] == "resolve_turn_t" else "0"
             row.update(ptxas=ptxas[f"resolve_turn_kernel<{flag},{P},{R},{T}>"],
                        games_per_block=k1_games, blocks=-(-G // k1_games), threads=k1_threads)
+        if row["name"] in wide:
+            row.update(ptxas=ptxas[f"{row['name']}_kernel<{K2_K3_FLAGSHIP}>"], games_per_block=k23_games,
+                       blocks=-(-G // k23_games), threads=k23_threads)
 
     for mode, cycle in cycles.items():
         p, tgt, o, buf = train_state[mode]

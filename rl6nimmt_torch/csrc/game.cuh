@@ -8,8 +8,10 @@
 //   is the multiply-high (uint64(word) * n) >> 32.
 // * card_points: the 6 nimmt! scoring rule (reference env.py:224-239).
 // * deal(): partial Fisher-Yates over the P*H + R dealt positions of a
-//   per-thread deck, laid out like engine.init_from_deck.  K2, K3 and K4 all
-//   call it, so deal_games(seed) reproduces the deals of K3 and K4.
+//   per-thread deck, laid out like engine.init_from_deck.  The K4-K6 play
+//   loop calls it.  K2 and K3 deal the same games with fy_draw on a deck in
+//   shared memory and card sets (set_*) for the hands, so deal_games(seed)
+//   reproduces the deals of K3 and K4.
 // * Rows + row_aggregates + apply_subplay: one sub-play resolved on per-row
 //   (points, last, card-sum) registers, as ops/step_kernel.py's
 //   _row_aggregates/_apply_subplay do on the TPU.  The board cells are
@@ -17,7 +19,7 @@
 //
 // Sizes are runtime values bounded by the MAX_* constants; the Python
 // wrappers check the bounds before launching.  Functions that need scratch
-// take it as a pointer: K1-K3 pass local arrays, the play loop shared memory.
+// take it as a pointer: K1 and the play loop pass shared memory.
 #pragma once
 
 #include <cstdint>
@@ -29,7 +31,6 @@ constexpr int MAX_R = 8;
 constexpr int MAX_T = 8;
 constexpr int MAX_H = 16;
 constexpr int MAX_C = 128;
-constexpr int THREADS = 128;  // threads a block of the one-thread-per-game kernels (K1-K3)
 
 constexpr uint32_t STREAM_DEAL = 0;
 constexpr uint32_t STREAM_PLAY = 1;
@@ -137,6 +138,80 @@ __device__ inline void deal(const Cfg& c, uint64_t seed, uint32_t game, int* han
     }
   }
   for (int r = 0; r < c.R; ++r) seeds[r] = deck[PH + r];
+}
+
+// ------------------------------------------------- the deal of K2 and K3
+//
+// K2 and K3 deal the same games as deal() with two changes to the data
+// structures.  The deck lives in shared memory and takes one draw at a time
+// (fy_draw), the only state indexed at run time.  A seat's hand is a card set
+// (set_*), so dealing a card sets a bit and needs no sort: slot r of the
+// sorted, -1-padded hand is the (r+1)-th smallest member.  K4-K6 keep deal().
+
+// Draw i of the partial Fisher-Yates on a deck of bytes: swap slot i with slot
+// i + ((word * (C - i)) >> 32), as deal() does.
+__device__ __forceinline__ void fy_draw(uint8_t* deck, int i, int C, uint32_t word) {
+  const int j = i + (int)__umulhi(word, (uint32_t)(C - i));
+  const uint8_t at_i = deck[i], at_j = deck[j];
+  deck[i] = at_j;
+  deck[j] = at_i;
+}
+
+// A set of card ids < 128: bit (card & 31) of word card >> 5.  Every word
+// index is compile-time (a select over the four words), so a set kept in a
+// local array stays in registers.
+constexpr int SET_WORDS = 4;
+
+__device__ __forceinline__ void set_insert(uint32_t* s, int card) {
+#pragma unroll
+  for (int k = 0; k < SET_WORDS; ++k) s[k] |= (card >> 5) == k ? 1u << (card & 31) : 0u;
+}
+
+__device__ __forceinline__ void set_remove(uint32_t* s, int card) {
+#pragma unroll
+  for (int k = 0; k < SET_WORDS; ++k) s[k] &= (card >> 5) == k ? ~(1u << (card & 31)) : ~0u;
+}
+
+// Members below `card`: its slot in the sorted hand, when it is a member.
+__device__ __forceinline__ int set_rank(const uint32_t* s, int card) {
+  const int q = card >> 5;
+  const uint32_t below = (1u << (card & 31)) - 1u;
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < SET_WORDS; ++k) n += __popc(s[k] & (k < q ? ~0u : k == q ? below : 0u));
+  return n;
+}
+
+// Bit position of the (n+1)-th set bit of x (n < popc(x)): a binary search on popcounts.
+__device__ __forceinline__ int nth_set_bit(uint32_t x, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int low = __popc(x & ((1u << w) - 1u));
+    if (n >= low) {
+      n -= low;
+      x >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The (r+1)-th smallest member (r < the set's size): hand slot r.
+__device__ __forceinline__ int set_select(const uint32_t* s, int r) {
+  uint32_t word = s[0];
+  int base = 0;
+  bool found = false;
+#pragma unroll
+  for (int k = 0; k < SET_WORDS; ++k) {
+    const int n = __popc(s[k]);
+    const bool here = !found && r < n;
+    word = here ? s[k] : word;
+    base = here ? 32 * k : base;
+    r -= (!found && !here) ? n : 0;
+    found = found || here;
+  }
+  return base + nth_set_bit(word, r);
 }
 
 // ------------------------------------------------------------- resolution

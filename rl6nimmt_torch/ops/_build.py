@@ -61,6 +61,8 @@ SIGNATURES = {
     "rl6_resolve_turn_t": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "rl6_resolve_games": [],
     "rl6_resolve_threads": [],
+    "rl6_game_games": [],
+    "rl6_game_threads": [],
     "rl6_deal_games": [_U64, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_play_random_games": [_U64, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "rl6_act_rollout": [_U64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -2,9 +2,11 @@
 
 * ``deal_games(cfg, seed, G)`` -> ``(board[G,R,T], row_len[G,R],
   hands_sorted[G,P,H])`` in ``init_from_deck`` layout.  On the card it
-  launches ``rl6_deal_games`` (``csrc/game_kernel.cu``); the shared
-  ``__device__ deal()`` of ``csrc/game.cuh`` is a partial Fisher-Yates over
-  the P*H + R dealt positions, driven by Philox stream ``STREAM_DEAL``.
+  launches ``rl6_deal_games`` (``csrc/game_kernel.cu``): a partial
+  Fisher-Yates over the P*H + R dealt positions of a deck in shared memory,
+  driven by Philox stream ``STREAM_DEAL``, with each seat's hand a card set
+  (``csrc/game.cuh``), so the hands need no sort.  It deals the games of the
+  play loop's ``deal()`` (K4-K6).
 * ``play_random_games(cfg, seed, G)`` -> ``(rewards[G,P], checksum[G])``:
   deal plus ``max_turns`` turns of uniform-legal random play and the
   per-game observation checksum (sum of every observation entry of every

@@ -125,23 +125,6 @@ def test_games_last_rollout_matches_fused_on_card():
     assert torch.equal(games_last[0], fused[0]) and float(games_last[1]) == float(fused[1])
 
 
-@pytest.mark.parametrize("num_players,G", [(4, 4096), (6, 333)])
-def test_k2_deal_matches_twin(num_players, G):
-    dev = _cuda()
-    cfg = EnvConfig(num_players)
-    for a, b in zip(deal_games(cfg, 2**40 + 5, G, device=dev), deal_games_plain(cfg, 2**40 + 5, G, dev)):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("num_players,G,summaries", [(4, 4096, True), (3, 777, True), (4, 300, False)])
-def test_k3_random_games_match_twin(num_players, G, summaries):
-    dev = _cuda()
-    cfg = EnvConfig(num_players, include_summaries=summaries)
-    rk, ck = play_random_games(cfg, 11, G, device=dev)
-    rp, cp = play_random_games_plain(cfg, 11, G, dev)
-    assert torch.equal(rk, rp) and torch.equal(ck, cp)
-
-
 def _flagship_weights(dev, G=4096):
     cfg, dqn = EnvConfig(4), DQNConfig(**FLAGSHIP)
     spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
@@ -168,6 +151,47 @@ def _k4_args(dev, cfg, hidden):
 SHAPES = {"default": {}, "no_summaries": dict(include_summaries=False), "deck_127": dict(num_cards=127),
           "long_rows": dict(num_rows=8, threshold=8, hand_size=16, num_cards=127),
           "most_smem": dict(num_rows=8, threshold=8, hand_size=7, num_cards=125)}
+
+# K2/K3 cases: (P, G, shape).  Every seat count the 104-card deck deals (P = 10
+# fills it) at G ragged against the 32 games of a block; the extreme shapes,
+# which run the runtime-sized instances; 4x the flagship's games; and the
+# earlier fixed cases.
+GAME_CASES = [(P, G, "default") for P in range(2, 11) for G in (1, 31, 33, 4095)] + [
+    (12, 129, "deck_127"), (7, 4095, "long_rows"), (16, 129, "most_smem"), (4, 300, "no_summaries"),
+    (4, 16_384, "default"), (4, 4096, "default"), (6, 333, "default"), (3, 777, "default")]
+
+
+@pytest.mark.parametrize("num_players,G,shape", GAME_CASES)
+def test_k2_deal_matches_twin(num_players, G, shape):
+    dev = _cuda()
+    cfg = EnvConfig(num_players, **SHAPES[shape])
+    for a, b in zip(deal_games(cfg, 2**40 + 5, G, device=dev), deal_games_plain(cfg, 2**40 + 5, G, dev)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_players,G,shape", GAME_CASES)
+def test_k3_random_games_match_twin(num_players, G, shape):
+    dev = _cuda()
+    cfg = EnvConfig(num_players, **SHAPES[shape])
+    rk, ck = play_random_games(cfg, 11, G, device=dev)
+    rp, cp = play_random_games_plain(cfg, 11, G, dev)
+    assert torch.equal(rk, rp) and torch.equal(ck, cp)
+
+
+def test_k2_k3_launch_on_the_current_stream():
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dealt = deal_games(cfg, 8, 4096, device=dev)
+        played = play_random_games(cfg, 9, 4096, device=dev)
+    side.synchronize()
+    for a, b in zip(dealt, deal_games_plain(cfg, 8, 4096, dev)):
+        assert torch.equal(a, b)
+    for a, b in zip(played, play_random_games_plain(cfg, 9, 4096, dev)):
+        assert torch.equal(a, b)
+
 
 # G ragged against the 32 games of a block; hidden widths of one 64-unit chunk (64),
 # part of one (32), two (100) and four (256); the widest net at the most seats of

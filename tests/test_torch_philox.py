@@ -45,11 +45,20 @@ def test_multiply_high_draws_stay_in_range():
     assert int(draw_below(torch.tensor([M]), 104)) == 103
 
 
-@pytest.mark.parametrize("num_players", [2, 4, 6])
-def test_philox_deal_is_a_valid_permutation_and_matches_jax_init(num_players):
-    cfg, jcfg = EnvConfig(num_players), JaxConfig(num_players)
+# The earlier seat counts, then the shapes K2's instances cover: the 104-card deck
+# full at P = 10; 127 cards with R = T = 8 and H = 16; R = T = 8, H = 7 on 125 cards.
+DEAL_CASES = [pytest.param(P, {}, id=str(P)) for P in (2, 4, 6)] + [
+    pytest.param(10, {}, id="deck_full"),
+    pytest.param(7, dict(num_rows=8, threshold=8, hand_size=16, num_cards=127), id="long_rows"),
+    pytest.param(16, dict(num_rows=8, threshold=8, hand_size=7, num_cards=125), id="most_smem")]
+
+
+@pytest.mark.parametrize("num_players,shape", DEAL_CASES)
+def test_philox_deal_is_a_valid_permutation_and_matches_jax_init(num_players, shape):
+    cfg, jcfg = EnvConfig(num_players, **shape), JaxConfig(num_players, **shape)
+    C = cfg.num_cards
     decks = deal_decks_plain(cfg, seed=1234, num_games=16, device="cpu")
-    assert torch.equal(torch.sort(decks, dim=1).values, torch.arange(104).expand(16, 104))
+    assert torch.equal(torch.sort(decks, dim=1).values, torch.arange(C).expand(16, C))
     board, row_len, hands = deal_games_plain(cfg, 1234, 16, "cpu")
     js = jax.vmap(functools.partial(jenv.init_from_deck, jcfg))(jnp.asarray(decks.numpy()))
     np.testing.assert_array_equal(np.asarray(js.board), board.numpy())

@@ -45,10 +45,19 @@ def _jax_engine(jcfg):
             jax.jit(jax.vmap(functools.partial(jenv.observe, jcfg))))
 
 
-@pytest.mark.parametrize("num_players,include_summaries", [(2, True), (4, True), (6, True), (4, False)])
-def test_random_games_plain_matches_jax_composition(num_players, include_summaries):
-    cfg = EnvConfig(num_players, include_summaries=include_summaries)
-    jcfg = JaxConfig(num_players, include_summaries=include_summaries)
+# Shapes the K2/K3 instances cover beside the earlier cases: the 104-card deck
+# full at P = 10 (10 * 10 + 4); a 127-card deck with R = T = 8 and H = 16; R = T = 8
+# with H = 7 on 125 cards at 16 seats.
+RANDOM_GAME_CASES = [pytest.param(P, s, {}, id=f"{P}-{s}") for P, s in [(2, True), (4, True), (6, True), (4, False)]] + [
+    pytest.param(10, True, {}, id="deck_full"),
+    pytest.param(7, True, dict(num_rows=8, threshold=8, hand_size=16, num_cards=127), id="long_rows"),
+    pytest.param(16, True, dict(num_rows=8, threshold=8, hand_size=7, num_cards=125), id="most_smem")]
+
+
+@pytest.mark.parametrize("num_players,include_summaries,shape", RANDOM_GAME_CASES)
+def test_random_games_plain_matches_jax_composition(num_players, include_summaries, shape):
+    cfg = EnvConfig(num_players, include_summaries=include_summaries, **shape)
+    jcfg = JaxConfig(num_players, include_summaries=include_summaries, **shape)
     init_j, step_j, obs_j = _jax_engine(jcfg)
     seed = 77 + num_players
     decks = deal_decks_plain(cfg, seed, G, "cpu").numpy()
