@@ -40,11 +40,26 @@ process per source), then:
    time: each variant's ms per generation, ms per launch at G=4096 (128
    blocks of 32 games, one per SM) and at G=16,384, its bound and its ptxas
    line; and each probe's ms and device ms beside those of the one PyTorch
-   call that computes the same function (a yardstick must not return a view).
+   call that computes the same function (a yardstick must not return a view);
+7. drives the search core (``agents/device_search.py``,
+   ``runtime/device_match.py``): kind-static decisions for the roots
+   ``uniform``, ``policy`` and ``puct`` and the kind-traced decision at every
+   kind, at mc_max=100 on the (100, 100) policy net, each on blocks of 1 and
+   64 openings dealt by K2, timed in ms a decision (host clock after
+   ``torch.cuda.synchronize()``) with their K1 launches asserted (ceil(n_mc /
+   K) rounds of 10 turns); then, with every counter at 0 just before each, the
+   device match of ``device_match_bench`` (128 games, ("puct", "uniform"),
+   mc_max=200) and a four-seat match ("puct", "policy", "uniform", "random"),
+   each required to launch K2 once and K1 once for every match turn and every
+   playout turn and nothing else; then one decision block (G=8, roots
+   ``uniform`` and ``puct``, uniform playouts) on the card and on the CPU with
+   one noise, whose actions, outcome sums and playout counts must be equal;
+   last one traced decision (its device-busy share).
 
-Prints one JSON line of kernels (K1's to K5's rows also carry their launch
-shape and ptxas line, K2's and K3's their ms and device ms at G=16,384, K4's
-its ms there), the card's name and power limit, and last
+Prints the ``search`` JSON line, one JSON line of kernels (K1's to K5's rows
+also carry their launch shape and ptxas line, K2's and K3's their ms and
+device ms at G=16,384, K4's its ms there, K1's row-major and K2's rows their
+launches on the search path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
 """
@@ -79,6 +94,16 @@ REPS = 5                   # a kernel's per-call ms: the median of this many tim
 ABLATE_G_WIDE = 16_384     # 4x the main path's games: 512 blocks of 32
 FLAGSHIP = dict(double=True, dueling=True, noisy=True, per=True, n_steps=10,
                 hidden_sizes=(HIDDEN,), minibatch=64)
+# Phase 7, the search core: the search agents' policy net and the JAX agents' defaults.
+SEARCH_HIDDEN = (100, 100)
+SEARCH_MC_MAX = 100
+SEARCH_GAMES = (1, 64)     # decision blocks
+SEARCH_REPS = 3            # timed decisions per program and block
+CHECK_GAMES = 8            # the card-against-CPU block
+# (label, roster, games, mc_max): the JAX device_match_bench configuration (one call
+# of its 128 games), then one match in which every seat kind plays.
+MATCHES = (("bench", ("puct", "uniform"), 128, 200),
+           ("four_seats", ("puct", "policy", "uniform", "random"), 64, 100))
 
 # Peak rates of one H100 SXM (NVIDIA's published figures): HBM
 # bytes/s and float32 operations/s outside the tensor cores.  Integer work is
@@ -107,9 +132,10 @@ def host_seconds(fn, iters):
     return (time.perf_counter() - t0) / iters
 
 
-def profile_cycle(fn, mode):
-    """One traced call: wall time, device busy time, idle share, the three
-    cycle phases and the ops with the most device time."""
+def profile_call(fn, label):
+    """One traced call: wall time, device busy time, idle share, the host
+    time of the ``cycle.*`` spans (a cycle's three phases) and the ops with
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,7 +157,7 @@ def profile_cycle(fn, mode):
     spans = {e.key: e.cpu_time_total / 1e3 for e in events
              if e.key.startswith("cycle.") and e.device_type == DeviceType.CPU}
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return {"profile": f"dqn_cycle_{mode}", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"profile": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": sum(e.count for e in kernels),
             "phase_host_ms": spans,
             "top_kernels": [{"kernel": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
@@ -146,6 +172,156 @@ def bound_ms(nbytes, ops):
 
 def max_abs_err(pairs):
     return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in pairs)
+
+
+def k1_k2_against_twins(cfg, sizes, seed, dev):
+    """For each game count in ``sizes``: K2's deal against ``deal_games_plain``,
+    then every turn of random legal play, K1 against ``resolve_turn_plain``.
+    Raises on a difference; returns the largest difference of each kernel."""
+    from rl6nimmt_torch.engine import deal, step
+    from rl6nimmt_torch.ops.game_kernel import deal_games, deal_games_plain
+    from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    errs = {"resolve_turn": 0.0, "deal_games": 0.0}
+    for games in sizes:
+        out_k, out_p = deal_games(cfg, seed, games, device=dev), deal_games_plain(cfg, seed, games, dev)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            raise AssertionError(f"K2 deal_games differs from its twin at P={cfg.num_players}, G={games}")
+        errs["deal_games"] = max(errs["deal_games"], max_abs_err(zip(out_k, out_p)))
+        state = deal(cfg, seed, games, device=dev)
+        for t in range(cfg.max_turns):
+            hs = state.hands_sorted
+            r = torch.floor(torch.rand(hs.shape[:2], generator=gen, device=dev) * (hs >= 0).sum(-1)).long()
+            acts = torch.gather(hs, -1, r[..., None]).squeeze(-1).contiguous()
+            out_k = resolve_turn(cfg, state.board, state.row_len, acts)
+            out_p = resolve_turn_plain(cfg, state.board, state.row_len, acts)
+            if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+                raise AssertionError(f"K1 resolve_turn differs from its twin at P={cfg.num_players}, "
+                                     f"G={games}, turn {t}")
+            errs["resolve_turn"] = max(errs["resolve_turn"], max_abs_err(zip(out_k, out_p)))
+            state, _ = step(cfg, state, acts)
+    return errs
+
+
+def search_phase(dev, card):
+    """Phase 7, the search core: decisions, the two matches with their launch
+    counts, the card against the CPU on one noise, then one traced decision.
+    Returns the ``search`` line, the matches' launches and the largest
+    K1/K2 differences from their twins at the matches' shapes."""
+    from rl6nimmt_torch.agents.device_search import (KIND_PUCT_UNIFORM, KIND_RANDOM, make_device_decision_fn_many,
+                                                     make_unified_decision_fn)
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.nets import MLPSpec, mlp_init
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.runtime.device_match import make_device_match_fn, playout_turns_per_seat
+    from rl6nimmt_torch.runtime.search_check import card_against_cpu, search_position
+
+    cfg = EnvConfig(4)
+    H = cfg.hand_size
+    spec = MLPSpec(cfg.state_length + 1, hidden_sizes=SEARCH_HIDDEN, head_sizes=(1,))
+    params = mlp_init(torch.Generator(device=dev).manual_seed(70), spec)
+    gen = torch.Generator(device=dev).manual_seed(71)
+
+    # The decisions: K2 deals each block's opening, seat 0 searches all H cards.
+    programs = {root: (make_device_decision_fn_many(cfg, "uniform" if root == "uniform" else "net", spec, root,
+                                                    SEARCH_MC_MAX, 8 if root == "puct" else SEARCH_MC_MAX, 2.0,
+                                                    device=dev), None)
+                for root in ("uniform", "policy", "puct")}
+    unified = make_unified_decision_fn(cfg, spec, SEARCH_MC_MAX, 8, device=dev)
+    programs.update({f"unified_kind{k}": (unified, k) for k in range(KIND_PUCT_UNIFORM + 1)})
+    ms, launches_per, blocks = {}, {}, {}
+    for G in SEARCH_GAMES:
+        board, row_len, hand, avail, obs = blocks[G] = search_position(cfg, 72, G, dev)
+        for name, (fn, kind) in programs.items():
+            if kind is None:
+                call = lambda fn=fn: fn(params, board, row_len, hand, H, SEARCH_MC_MAX, avail, obs, gen)
+            else:
+                n_mc = 0 if kind == KIND_RANDOM else SEARCH_MC_MAX
+                call = lambda fn=fn, kind=kind, n_mc=n_mc: fn(params, torch.full((G,), kind), board, row_len, hand,
+                                                              H, n_mc, 2.0, avail, obs, gen)
+            _build.reset_launches()
+            action = call()[0]
+            torch.cuda.synchronize()
+            launches_per[f"G{G}_{name}"] = dict(_build.LAUNCHES)["resolve_turn"]
+            if not (hand == action[:, None]).any(dim=1).all():
+                raise AssertionError(f"decision {name} at G={G} chose a card outside the hand")
+            ms[f"G{G}_{name}"] = host_seconds(call, SEARCH_REPS) * 1e3
+    log(f"[7] ms a decision at mc_max={SEARCH_MC_MAX}, P={cfg.num_players}, net {SEARCH_HIDDEN}: "
+        f"{ {k: round(v, 2) for k, v in ms.items()} }; K1 launches a decision {launches_per}")
+    for name, got in launches_per.items():
+        root = name.split("_", 1)[1]
+        K = 8 if root.startswith("unified") or root == "puct" else SEARCH_MC_MAX
+        want = 0 if root == f"unified_kind{KIND_RANDOM}" else -(-SEARCH_MC_MAX // K) * H
+        if got != want:
+            raise AssertionError(f"decision {name} launched K1 {got} times, expected {want}")
+
+    # The matches: every counter at 0 just before each, read just after.
+    matches, path_launches = {}, {k: 0 for k in _build.LAUNCHES}
+    for label, roster, games, mc_max in MATCHES:
+        mcfg = EnvConfig(len(roster))
+        mspec = MLPSpec(mcfg.state_length + 1, hidden_sizes=SEARCH_HIDDEN, head_sizes=(1,))
+        mparams = mlp_init(torch.Generator(device=dev).manual_seed(73), mspec)
+        fn = make_device_match_fn(mcfg, roster, mspec, games, mc_max=mc_max, device=dev)
+        seat_params = tuple(mparams if k in ("puct", "policy") else None for k in roster)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        scores = fn(seat_params, torch.Generator(device=dev).manual_seed(74))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in got.items():
+            path_launches[k] += v
+        searchers = sum(k != "random" for k in roster)
+        want = {"deal_games": 1, "resolve_turn": mcfg.max_turns + searchers * playout_turns_per_seat(mcfg, mc_max)}
+        if got != want:
+            raise AssertionError(f"match {label} launched {got}, expected {want}")
+        if scores.shape != (games, len(roster)) or not (torch.isfinite(scores).all() and (scores <= 0).all()):
+            raise AssertionError(f"match {label}: scores of shape {tuple(scores.shape)} must be finite and <= 0")
+        mean = scores.mean(dim=0).tolist()
+        matches[label] = {"roster": list(roster), "games": games, "mc_max": mc_max, "wall_s": wall,
+                          "games_per_s": games / wall, "launches": got, "mean_score": mean}
+        log(f"[7] match {label} {roster}, {games} games, mc_max {mc_max}: {wall:.2f} s, "
+            f"{games / wall:.1f} games/s, launches {got}, mean scores {[round(x, 3) for x in mean]}")
+
+    # The card against the CPU on one noise drawn on the CPU: the G=8 block, then
+    # each match's shapes (P seats, its games dealt by K2, K1 over games x 8 playouts).
+    agree = {}
+    checks = [("block", cfg, CHECK_GAMES)] + [(label, EnvConfig(len(roster)), games)
+                                              for label, roster, games, _ in MATCHES]
+    for label, ccfg, games in checks:
+        cspec = MLPSpec(ccfg.state_length + 1, hidden_sizes=SEARCH_HIDDEN, head_sizes=(1,))
+        for root in ("uniform", "puct"):
+            out = card_against_cpu(ccfg, cspec, root, games, 8, SEARCH_MC_MAX, seed=75)
+            if not out["equal"]:
+                raise AssertionError(f"search on the card differs from the CPU ({label}, root {root}): actions "
+                                     f"{out['card'][0].tolist()} vs {out['cpu'][0].tolist()}")
+            agree[f"{label}_{root}"] = {"players": ccfg.num_players, "games": games, "lanes": games * 8,
+                                        "playouts": int(out["card"][2].sum())}
+    log(f"[7] card == CPU on one noise (K=8, uniform playouts, mc_max {SEARCH_MC_MAX}): positions, actions, sums "
+        f"and counts equal for {agree}")
+    # K1 and K2 against their twins at each match's shapes: the deal, then ten
+    # turns of random legal cards at its games (a match turn) and games x 8 (a playout turn).
+    twin_errs = {"resolve_turn": 0.0, "deal_games": 0.0}
+    for label, roster, games, _ in MATCHES:
+        mcfg = EnvConfig(len(roster))
+        for err_k, err in k1_k2_against_twins(mcfg, (games, games * 8), 76, dev).items():
+            twin_errs[err_k] = max(twin_errs[err_k], err)
+    log(f"[7] K1 and K2 bit-exact vs twins at the matches' shapes "
+        f"{[(len(r), g, g * 8) for _, r, g, _ in MATCHES]} (P, games, playout lanes)")
+
+    # Last: one traced decision (PUCT over net playouts, G = the larger block).
+    G = SEARCH_GAMES[-1]
+    board, row_len, hand, avail, obs = blocks[G]
+    puct = programs["puct"][0]
+    traced = profile_call(lambda: puct(params, board, row_len, hand, H, SEARCH_MC_MAX, avail, obs, gen),
+                          f"search_decision_puct_G{G}")
+    log(json.dumps(traced))
+    return {"search": {"ms_per_decision": ms, "resolve_turn_per_decision": launches_per, "matches": matches,
+                       "card_vs_cpu": agree, "profile": {k: traced[k] for k in ("profile", "wall_ms", "device_busy_ms",
+                                                                              "idle_share", "kernel_launches")},
+                       "mc_max": SEARCH_MC_MAX, "hidden": list(SEARCH_HIDDEN), "card": card}}, path_launches, twin_errs
 
 
 def main():
@@ -353,7 +529,7 @@ def main():
 
     # ------------------------------------------------------------ phase 5
     # The rates and every per-call time come before the first profiler session
-    # of this process (device_ms, profile_cycle): a session may slow later host work.
+    # of this process (device_ms, profile_call): a session may slow later host work.
     P, R, T, H, S, A = cfg.num_players, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.state_length, cfg.num_actions
     turns = cfg.max_turns
     steps_per_gen = G * turns
@@ -469,7 +645,7 @@ def main():
     for mode, cycle in cycles.items():
         p, tgt, o, buf = train_state[mode]
         cgen = torch.Generator(device=dev).manual_seed(12)
-        log(json.dumps(profile_cycle(lambda: cycle(p, tgt, o, buf, cgen, 0.0), mode)))
+        log(json.dumps(profile_call(lambda: cycle(p, tgt, o, buf, cgen, 0.0), f"dqn_cycle_{mode}")))
 
     # ------------------------------------------------------------ phase 6
     from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
@@ -572,6 +748,14 @@ def main():
                      "max_abs_err": probe_results[key]["max_abs_err"], "ms": ms, "device_ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "library_device_ms": lib_dev_ms})
+
+    # ------------------------------------------------------------ phase 7
+    search_line, search_launches, twin_errs = search_phase(dev, card)
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["search_path_launches"] = search_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], twin_errs[row["name"]])
+    print(json.dumps(search_line), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

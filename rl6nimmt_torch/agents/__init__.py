@@ -1,4 +1,6 @@
-"""Agents (port of ``rl6nimmt_tpu.agents``): the DQN learner's functional core."""
+"""Agents (port of ``rl6nimmt_tpu.agents``): the DQN learner's functional core,
+re-exported here; the search agents are in :mod:`.mcs`, their decisions in
+:mod:`.device_search` and their playouts in :mod:`.search`."""
 
 from .dqn import (
     MASK_VALUE,

@@ -13,6 +13,7 @@ from .mlp import (
     noisy_linear_apply,
     noisy_linear_init,
 )
+from .normalize import normalize_state
 
 __all__ = [
     "MLPSpec",
@@ -26,6 +27,7 @@ __all__ = [
     "noisy_effective_params",
     "noisy_linear_apply",
     "noisy_linear_init",
+    "normalize_state",
     "params_from_jax",
     "params_to_numpy",
 ]

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,7 +41,11 @@ def test_module_list_covers_the_ported_slice():
     for m in ("engine.env", "ops.philox", "ops.step_kernel", "ops.game_kernel", "ops.act_rollout_kernel",
               "ops.act_rollout_check", "utils.ops", "nets.mlp", "nets.convert", "buffers.ring",
               "buffers.per", "agents.dqn", "runtime.vector", "ops._build", "ops.act_ablate_kernel",
-              "ops.probe_ops", "experiments.act_rollout_ablate", "experiments.probe_ops"):
+              "ops.probe_ops", "experiments.act_rollout_ablate", "experiments.probe_ops",
+              # the search core
+              "nets.normalize", "agents.reinforce", "agents.base", "agents.search", "agents.device_search",
+              "agents.mcs", "runtime.device_match", "experiments.search_latency",
+              "experiments.device_match_bench", "runtime.search_check"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -54,19 +59,23 @@ def test_no_source_imports_jax(path):
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
+    from rl6nimmt_torch.agents import device_search, mcs, search
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
     from rl6nimmt_torch.buffers import per_init, per_init_kd, ring_init
     from rl6nimmt_torch.engine import EnvConfig, deal
-    from rl6nimmt_torch.experiments import act_rollout_ablate, probe_ops
-    from rl6nimmt_torch.nets import mlp_init, noise_from_jax, params_from_jax
+    from rl6nimmt_torch.experiments import act_rollout_ablate, device_match_bench, probe_ops, search_latency
+    from rl6nimmt_torch.nets import MLPSpec, mlp_init, noise_from_jax, params_from_jax
     from rl6nimmt_torch.ops.game_kernel import (deal_decks_plain, deal_games, deal_games_plain,
                                                 play_random_games, play_random_games_plain,
                                                 random_pick_words)
+    from rl6nimmt_torch.runtime import search_check
+    from rl6nimmt_torch.runtime.device_match import make_device_match_fn
     from rl6nimmt_torch.runtime.vector import (dqn_replay_example, make_dqn_selfplay_step,
                                                make_random_rollout, make_random_rollout_generations)
 
     cfg = EnvConfig(4)
     spec = q_network_spec(DQNConfig(hidden_sizes=(8,)), cfg.state_length, cfg.num_actions)
+    net = MLPSpec(cfg.state_length + 1)
     tree = {"trunk": [{"w": [[0.0]], "b": [0.0]}], "heads": []}
     calls = [
         lambda: make_random_rollout(cfg, 8),
@@ -91,6 +100,21 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: probe_ops.probe_inputs(),
         lambda: probe_ops.run(),
         lambda: probe_ops.main(),
+        lambda: search.make_playout_fn(cfg, "uniform", None),
+        lambda: search.build_root_states_batch(cfg, [[[1]] * 4], [[2]], np.zeros((1, 1, 3, 1), np.int64)),
+        lambda: search.build_root_state(cfg, [[1]] * 4, [2], np.zeros((1, 3, 1), np.int64)),
+        lambda: device_search.factorial_table(10),
+        lambda: device_search.make_device_decision_fn(cfg, "uniform", None, "uniform", 8, 8, 2.0),
+        lambda: device_search.make_device_decision_fn_many(cfg, "uniform", None, "uniform", 8, 8, 2.0),
+        lambda: device_search.make_unified_decision_fn(cfg, net, 8, 8),
+        lambda: mcs.MCSAgent(seed=0),
+        lambda: mcs.PUCTAgent(seed=0),
+        lambda: mcs.PUCTCustomedAgent(seed=0),
+        lambda: make_device_match_fn(cfg, ("uniform",) * 4, None, 8),
+        lambda: search_check.search_position(cfg, 0, 2),
+        lambda: search_check.exact_prior(net),
+        lambda: search_latency.main([]),
+        lambda: device_match_bench.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -98,3 +122,6 @@ def test_cuda_entry_points_raise_without_a_card():
     # Asking for the CPU works.
     total, checksum = make_random_rollout_generations(cfg, 8, 1, device="cpu")(0)
     assert total.shape == (8, 4) and float(checksum) > 0
+    scores = make_device_match_fn(cfg, ("uniform", "random") * 2, None, 2, mc_max=4, device="cpu")(
+        (None,) * 4, torch.Generator())
+    assert scores.shape == (2, 4) and (scores <= 0).all()

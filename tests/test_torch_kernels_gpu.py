@@ -355,3 +355,76 @@ def test_k7_probe_matches_twin(key):
     ok, diff = compare(kernel(*args), twin(*args), exact)
     assert ok, f"{key} {label}: max|diff| {diff}"
     assert _build.LAUNCHES[f"probe_{key}"] == 1
+
+
+# ------------------------------------------------------------ the search path
+
+
+@pytest.mark.parametrize("root", ["uniform", "puct"])
+@pytest.mark.parametrize("K", [8, 32])
+@pytest.mark.parametrize("G", [1, 8, 64])
+def test_search_decision_on_card_equals_cpu(G, K, root):
+    """A decision block on uniform playouts (K1 every playout turn) equals the
+    same block on the CPU given the same noise: actions, sums and counts."""
+    from rl6nimmt_torch.nets import MLPSpec
+    from rl6nimmt_torch.runtime.search_check import card_against_cpu
+
+    _cuda()
+    cfg = EnvConfig(4)
+    _build.reset_launches()
+    out = card_against_cpu(cfg, MLPSpec(cfg.state_length + 1), root, G, K, 40, seed=G + K)
+    assert out["equal"], (out["card"][0], out["cpu"][0])
+    assert (out["card"][2].sum(dim=1) == 40).all()
+    # One decision: two rounds of ten turns, or five at K = 8.
+    assert _build.LAUNCHES["resolve_turn"] == -(-40 // min(K, 40)) * cfg.hand_size
+
+
+@pytest.mark.parametrize("root", ["uniform", "puct"])
+@pytest.mark.parametrize("players,games", [(2, 128), (4, 64)])
+def test_search_at_match_shapes_on_card_equals_cpu(players, games, root):
+    """The matches' shapes: K2 deals ``games`` games of ``players`` seats (the
+    runtime-sized instance at P = 2) and K1 resolves their 8 x ``games`` playouts."""
+    from rl6nimmt_torch.nets import MLPSpec
+    from rl6nimmt_torch.runtime.search_check import card_against_cpu
+
+    _cuda()
+    cfg = EnvConfig(players)
+    out = card_against_cpu(cfg, MLPSpec(cfg.state_length + 1), root, games, 8, 16, seed=players)
+    assert out["equal"], (out["card"][0], out["cpu"][0])
+
+
+@pytest.mark.parametrize("roster", [("puct", "uniform"), ("puct", "policy", "uniform", "random")])
+def test_device_match_launches(roster):
+    """A match launches K2 once and K1 once for every match turn and every
+    playout turn, and nothing else."""
+    from rl6nimmt_torch.nets import MLPSpec
+    from rl6nimmt_torch.runtime.device_match import make_device_match_fn, playout_turns_per_seat
+
+    dev = _cuda()
+    cfg = EnvConfig(len(roster))
+    spec = MLPSpec(cfg.state_length + 1)
+    params = mlp_init(torch.Generator(device=dev).manual_seed(0), spec)
+    fn = make_device_match_fn(cfg, roster, spec, num_games=16, mc_max=24, device=dev)
+    _build.reset_launches()
+    scores = fn(tuple(params if k in ("puct", "policy") else None for k in roster),
+                torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    searchers = sum(k != "random" for k in roster)
+    want = {"deal_games": 1, "resolve_turn": cfg.max_turns + searchers * playout_turns_per_seat(cfg, 24)}
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+    assert scores.shape == (16, len(roster)) and (scores <= 0).all()
+
+
+def test_argmax_first_maximum_on_card():
+    """The decisions' tie rule: ``torch.argmax`` keeps the first maximum on the card too."""
+    from rl6nimmt_torch.agents.device_search import _best
+
+    dev = _cuda()
+    x = torch.zeros((64, 1000), device=dev)
+    x[:, 500:] = 1.0
+    x[torch.arange(64), torch.arange(64) + 600] = 2.0
+    x[::2, 999] = 2.0
+    assert torch.equal(torch.argmax(x, dim=-1).cpu(), torch.arange(64) + 600)
+    act_sum = torch.tensor([[-4.0, -2.0, -2.0, 0.0], [-1.0, -1.0, -1.0, -1.0]], device=dev)
+    act_cnt = torch.tensor([[2.0, 1.0, 1.0, 0.0], [1.0, 1.0, 1.0, 1.0]], device=dev)
+    assert _best(act_sum, act_cnt).tolist() == [0, 0]
