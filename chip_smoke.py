@@ -54,12 +54,28 @@ process per source), then:
    playout turn and nothing else; then one decision block (G=8, roots
    ``uniform`` and ``puct``, uniform playouts) on the card and on the CPU with
    one noise, whose actions, outcome sums and playout counts must be equal;
-   last one traced decision (its device-busy share).
+   last one traced decision (its device-busy share);
+8. drives the REINFORCE and ACER learners (``runtime/vector.py``, through
+   ``experiments/trainable_bench.py``'s arms) at G=4096, P=4 on the (100, 100)
+   action-in-input net: with every counter at 0 just before it, 3 fused
+   REINFORCE steps and 3 ACER cycles with ``packed_rows`` False and True
+   (65,536-sequence buffer, minibatch 512, 512 on-policy sequences), each
+   step required to launch K2 once and K1 ten times and nothing else, with
+   finite losses and params that moved; then their env-steps/s (taken right
+   after phase 5's rates, before the first profiler session); after phase 7,
+   one REINFORCE step and one ACER cycle on the card and on the CPU on one
+   randomness at G=64 (``runtime/learner_check.py``: observations, actions,
+   rewards and scores equal, losses and params within float32 tolerance), K1
+   and K2 against their twins at the learners' shapes, four host agents
+   (REINFORCE, masked REINFORCE, ACER past its warmup, PUCT) learning over
+   whole games of the host loop on the card, and last one traced step of each
+   learner.
 
-Prints the ``search`` JSON line, one JSON line of kernels (K1's to K5's rows
-also carry their launch shape and ptxas line, K2's and K3's their ms and
-device ms at G=16,384, K4's its ms there, K1's row-major and K2's rows their
-launches on the search path), the card's name and power limit, and last
+Prints the ``search`` and ``learners`` JSON lines, one JSON line of kernels
+(K1's to K5's rows also carry their launch shape and ptxas line, K2's and
+K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
+K2's rows their launches on the search path and on the learners' path), the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
 """
@@ -105,6 +121,14 @@ CHECK_GAMES = 8            # the card-against-CPU block
 MATCHES = (("bench", ("puct", "uniform"), 128, 200),
            ("four_seats", ("puct", "policy", "uniform", "random"), 64, 100))
 
+# Phase 8, the REINFORCE and ACER learners at bench_trainable.py's widths (G, P=4,
+# the (100, 100) action-in-input net; ACER: 65,536 sequences, minibatch 512, 512
+# on-policy sequences; experiments/trainable_bench.py holds them).
+LEARNER_STEPS = 3          # steps or cycles per learner for the rates and the counts
+LEARNER_CHECK_GAMES = 64   # the card-against-CPU run
+HOST_GAMES = 4             # host-loop games (ACER's warmup needs 3 flushes)
+SPANS = ("cycle.", "reinforce.", "acer.")
+
 # Peak rates of one H100 SXM (NVIDIA's published figures): HBM
 # bytes/s and float32 operations/s outside the tensor cores.  Integer work is
 # charged at the float32 rate, which can only make a bound smaller.
@@ -134,8 +158,9 @@ def host_seconds(fn, iters):
 
 def profile_call(fn, label):
     """One traced call: wall time, device busy time, idle share, the host
-    time of the ``cycle.*`` spans (a cycle's three phases) and the ops with
-    the most device time."""
+    time of the phase spans (``cycle.*``: a DQN cycle's three phases;
+    ``reinforce.*`` and ``acer.*``: the learners') and the ops with the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,13 +174,13 @@ def profile_call(fn, label):
     events = prof.key_averages()
     # Device work = the kernel (and copy) events themselves; the aten ops and
     # the cycle.* spans only attribute that same time, so they are left out.
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("cycle.")]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith(SPANS)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     # Span times on the host clock: the cycle is dispatch-bound, so this is
     # where its time goes.  The profiler's device-side span times were not
     # reliable on the card (a rollout span holding a 3.5 ms kernel read 0.03 ms).
     spans = {e.key: e.cpu_time_total / 1e3 for e in events
-             if e.key.startswith("cycle.") and e.device_type == DeviceType.CPU}
+             if e.key.startswith(SPANS) and e.device_type == DeviceType.CPU}
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"profile": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": sum(e.count for e in kernels),
@@ -322,6 +347,109 @@ def search_phase(dev, card):
                        "card_vs_cpu": agree, "profile": {k: traced[k] for k in ("profile", "wall_ms", "device_busy_ms",
                                                                               "idle_share", "kernel_launches")},
                        "mc_max": SEARCH_MC_MAX, "hidden": list(SEARCH_HIDDEN), "card": card}}, path_launches, twin_errs
+
+
+def learner_rates(dev, card):
+    """Phase 8's path, with every counter at 0 just before it: LEARNER_STEPS
+    REINFORCE steps and ACER cycles (``packed_rows`` False and True) at full
+    width, each step's launches asserted (K2 1, K1 10); then the rates (host
+    clock after ``torch.cuda.synchronize()``, before any profiler session).
+    Returns the rates line, the path's launches and the arms."""
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments.trainable_bench import AcerArm, ReinforceArm, seconds_per_step
+    from rl6nimmt_torch.ops import _build
+
+    cfg = EnvConfig(4)
+    arms = {"reinforce": ReinforceArm(cfg, G, dev), "acer": AcerArm(cfg, G, dev),
+            "acer_packed": AcerArm(cfg, G, dev, packed=True)}
+    start = {name: [x.clone() for x in tree_leaves(arm.params)] for name, arm in arms.items()}
+    want = {"deal_games": 1, "resolve_turn": cfg.max_turns}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    # ---- the learners' path: every counter starts at 0 here ----
+    out, path = {}, {k: 0 for k in _build.LAUNCHES}
+    for name, arm in arms.items():
+        steps = []
+        for i in range(LEARNER_STEPS):
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            m = arm.step()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+            if got != want:
+                raise AssertionError(f"{name} step {i} launched {got}, expected {want}")
+            steps.append({"s": sec, **{k: float(v) for k, v in m.items()}})
+        leaves = tree_leaves(arm.params)
+        if not all(math.isfinite(v) for st in steps for v in st.values()) \
+                or not all(torch.isfinite(x).all() for x in leaves):
+            raise AssertionError(f"{name}: non-finite losses or params {steps}")
+        if all(torch.equal(a, b) for a, b in zip(leaves, start[name])):
+            raise AssertionError(f"{name}: {LEARNER_STEPS} steps left the params unchanged")
+        out[name] = steps
+        log(f"[8] {name} at G={G}: {[{k: round(v, 5) for k, v in st.items()} for st in steps]}")
+    torch.cuda.synchronize()
+    for k, v in _build.LAUNCHES.items():
+        path[k] += v
+    # ---- end of the learners' path ----
+    rates = {}
+    for name, arm in arms.items():
+        sec = seconds_per_step(arm, 5, warmup=1)
+        rates[f"{name}_env_steps_per_s"] = G * cfg.max_turns / sec
+        log(json.dumps({"metric": f"trainable env-steps/s, {name}", "value": rates[f"{name}_env_steps_per_s"],
+                        "seconds_per_step": sec, "games": G, "card": card}))
+    return {"steps": out, "rates": rates}, path, arms
+
+
+def learner_checks(dev):
+    """Phase 8's checks: the card against the CPU on one randomness (G=64),
+    K1/K2 against their twins at the learners' shapes, and the four host agents
+    learning over whole games of the host loop on the card."""
+    from rl6nimmt_torch.agents.acer import BatchedACERAgent
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.agents.mcs import PUCTAgent
+    from rl6nimmt_torch.agents.reinforce import BatchedReinforceAgent, MaskedReinforceAgent
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.runtime.host_loop import play_games
+    from rl6nimmt_torch.runtime.learner_check import learners_card_against_cpu
+
+    t0 = time.perf_counter()
+    check = learners_card_against_cpu(LEARNER_CHECK_GAMES)
+    if not check["equal"]:
+        raise AssertionError(f"learners on the card differ from the CPU: "
+                             f"{ {k: v for k, v in check['exact'].items() if not v} } "
+                             f"{ {k: v for k, v in check['f32'].items() if v > 1.0} }")
+    worst = max(check["f32"].items(), key=lambda kv: kv[1])
+    log(f"[8] card == CPU at G={LEARNER_CHECK_GAMES} on one randomness ({time.perf_counter() - t0:.1f} s): "
+        f"{len(check['exact'])} integer outputs equal (observations, legal sets, actions, rewards, scores); "
+        f"{len(check['f32'])} float outputs within rtol 1e-5, atol 1e-6 x max|x| (worst {worst[0]}: "
+        f"{worst[1]:.3f} of the tolerance)")
+    twin_errs = k1_k2_against_twins(EnvConfig(4), (G, LEARNER_CHECK_GAMES), 81, dev)
+    log(f"[8] K1 and K2 bit-exact vs twins at the learners' shapes (P=4, G={G} and {LEARNER_CHECK_GAMES})")
+
+    agents = {"reinforce": BatchedReinforceAgent(seed=1, device=dev),
+              "masked_reinforce": MaskedReinforceAgent(seed=2, device=dev),
+              "acer": BatchedACERAgent(seed=3, warmup=2, minibatch=2, device=dev),
+              "puct": PUCTAgent(seed=4, mc_max=8, mc_per_card=2, device=dev)}
+    start = {k: [x.clone() for x in tree_leaves(a.parameters())] for k, a in agents.items()}
+    for a in agents.values():
+        a.train()
+    t0 = time.perf_counter()
+    results = play_games(list(agents.values()), num_games=HOST_GAMES, seed=82, device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    moved = {k: any(not torch.equal(x, y) for x, y in zip(tree_leaves(a.parameters()), start[k]))
+             for k, a in agents.items()}
+    if not all(moved.values()) or not (results <= 0).all():
+        raise AssertionError(f"host agents on the card: params moved {moved}, scores {results.tolist()}")
+    if agents["acer"].opt_state.count != 2 * (HOST_GAMES - 2):   # one on- and one off-policy update a flush past warmup
+        raise AssertionError(f"ACER ran {agents['acer'].opt_state.count} updates")
+    log(f"[8] host agents on the card ({HOST_GAMES} games, {sec:.1f} s): params moved {moved}, "
+        f"Adam steps {({k: a.opt_state.count for k, a in agents.items()})}, scores {results.tolist()}")
+    return {"card_vs_cpu": {"exact": len(check["exact"]), "f32": len(check["f32"]), "worst": worst},
+            "host_agents": {"games": HOST_GAMES, "seconds": sec, "adam_steps":
+                            {k: a.opt_state.count for k, a in agents.items()}}}, twin_errs
 
 
 def main():
@@ -546,6 +674,8 @@ def main():
         rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / sec
     for k, v in rates.items():
         log(json.dumps({"metric": k, "value": v, "card": card}))
+    # Phase 8's path and rates, also before the first profiler session.
+    learner_line, learner_launches, learner_arms = learner_rates(dev, card)
     k1_b, k1_l, k1_a = k1_inputs
     k1t_b, k1t_l, k1t_a = k1t_inputs
     insert = make_act_insert_kernel(cfg, G, HIDDEN, KD_CAPACITY, 0.99, dqn.n_steps)
@@ -756,6 +886,20 @@ def main():
             row["search_path_launches"] = search_launches[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], twin_errs[row["name"]])
     print(json.dumps(search_line), flush=True)
+
+    # ------------------------------------------------------------ phase 8
+    checks, learner_twin_errs = learner_checks(dev)
+    learner_line.update(checks)
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["learner_path_launches"] = learner_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], learner_twin_errs[row["name"]])
+    for name in ("reinforce", "acer"):
+        traced = profile_call(learner_arms[name].step, f"{name}_step_G{G}")
+        log(json.dumps(traced))
+        learner_line[f"profile_{name}"] = {k: traced[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                                   "kernel_launches", "phase_host_ms")}
+    print(json.dumps({"learners": learner_line, "card": card}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

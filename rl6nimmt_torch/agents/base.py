@@ -92,6 +92,10 @@ class Agent:
 
     # --------------------------------------------------------------- plumbing
 
+    def _tensor(self, x) -> torch.Tensor:
+        """``x`` (array-like) as a tensor on the agent's device."""
+        return torch.from_numpy(np.asarray(x)).to(self.device)
+
     def parameters(self):
         """The trainable parameter tree (None for learning-free agents)."""
         return None

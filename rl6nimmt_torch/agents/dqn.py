@@ -113,8 +113,54 @@ class Adam:
         return tree_map(upd, mu, nu), AdamState(count, mu, nu)
 
 
+@dataclass(frozen=True)
+class Sgd:
+    """Functional ``optax.sgd``: updates ``-lr * grad``, no state.
+
+    The parity checks compare parameters after an update under it: an update
+    linear in the gradient keeps round-off at round-off, where Adam's first
+    step moves every parameter by about ``lr`` whatever its gradient's size
+    (the policy head's bias has a zero gradient by construction, the softmax
+    being shift-invariant, so both sides step it by their round-off's sign).
+    """
+
+    lr: float = 1e-2
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state):
+        return tree_map(lambda g: -self.lr * g, grads), state
+
+
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u, params, updates)
+
+
+def grad_leaves(params):
+    """``(leaves, live)``: fresh leaves that require grad and the tree over them."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    return leaves, tree_unflatten(params, leaves)
+
+
+def grads_of(loss: torch.Tensor, leaves, like):
+    """The gradient of ``loss`` w.r.t. ``leaves`` (the :func:`grad_leaves` of
+    the tree ``like``) as a tree; a leaf the loss does not reach gets zeros,
+    as ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tree_unflatten(like, [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)])
+
+
+@torch.no_grad()
+def optimizer_apply(optimizer, params, opt_state, grads):
+    """One step of ``optimizer`` (:class:`Adam` or :class:`Sgd`): ``(params', opt_state')``, new tensors."""
+    updates, opt_state = optimizer.update(grads, opt_state)
+    return apply_updates(tree_map(lambda p: p.detach(), params), updates), opt_state
+
+
+def optimizer_step(optimizer, params, opt_state, loss: torch.Tensor, leaves):
+    """:func:`grads_of` then :func:`optimizer_apply`."""
+    return optimizer_apply(optimizer, params, opt_state, grads_of(loss, leaves, params))
 
 
 # ------------------------------------------------------------------- learner
@@ -147,8 +193,7 @@ def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float
         if cfg.noisy and noise is None:
             raise ValueError("noisy configs need injected learn noise (learn_noise)")
         noise_eval, noise_tgt = noise if cfg.noisy else (None, None)
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        live = tree_unflatten(params, leaves)
+        leaves, live = grad_leaves(params)
         q = q_values(cfg, spec, live, batch["state"], noise_eval)
         q_eval = onehot_select(q, batch["action"])
         with torch.no_grad():
@@ -159,11 +204,8 @@ def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float
             loss = torch.mean(batch["weights"] * err ** 2)
         else:
             loss = torch.mean(err ** 2)
-        grads = torch.autograd.grad(loss, leaves)
-        grads = tree_unflatten(params, grads)
+        new_params, opt_state = optimizer_apply(optimizer, params, opt_state, grads_of(loss, leaves, params))
         with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state)
-            new_params = apply_updates(tree_map(lambda p: p.detach(), params), updates)
             if cfg.double and do_soft_update:
                 tau = cfg.tau
                 target_params = tree_map(lambda t, l: tau * l + (1.0 - tau) * t,

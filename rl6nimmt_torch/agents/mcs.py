@@ -24,9 +24,11 @@ Playouts run in batches of ``batch_playouts``, with PUCT visit counts updated
 inside a batch and outcome statistics between batches.  ``device_root=True``
 runs the whole decision in :mod:`.device_search`.
 
-Serving only: the self-imitation ``learn`` of PolicyMCS, PUCT and
-PUCTCustomed is training and comes with ROADMAP queue 1 item 9 (the
-REINFORCE learner it shares); until then it raises ``NotImplementedError``.
+Learning: PolicyMCS and PUCT imitate their own search choices at the end of
+each episode (``-sum_t log pi(chosen_t)``, mcts.py:245-256); PUCTCustomed
+adds the squared error of the chosen card's value against the episode
+return (mcts.py:325-451).  One Adam step an episode, the gradient from
+``torch.autograd``, as the REINFORCE agents learn.
 """
 
 from __future__ import annotations
@@ -39,11 +41,11 @@ import torch
 
 from ..engine.state import EnvConfig
 from ..nets import MLPSpec, mlp_init
+from ..utils.ops import onehot_select
 from .base import Agent, pad_cards
-from .reinforce import action_in_input_heads, action_in_input_logits
+from .dqn import grad_leaves, optimizer_step
+from .reinforce import action_in_input_heads, action_in_input_logits, episode_batch
 from .search import build_root_states_batch, make_playout_fn
-
-LEARN_LATER = "self-imitation learning of the search agents: ROADMAP queue 1 item 9 (REINFORCE)"
 
 
 class BaseMCAgent(Agent):
@@ -129,9 +131,6 @@ class BaseMCAgent(Agent):
     def new_memory() -> dict:
         """Fresh per-(game, seat) card memory for :meth:`forward_many`."""
         return {"available_cards": [], "num_players": None}
-
-    def learn(self, *args, **kwargs):
-        raise NotImplementedError(LEARN_LATER)
 
     # ---------------------------------------------------------- card memory
 
@@ -301,7 +300,7 @@ class MCSAgent(BaseMCAgent):
 
 
 class PolicyMCSAgent(BaseMCAgent):
-    """Learned playout policy (mcts.py:191-261); its learning is item 9."""
+    """Learned playout policy; learns by self-imitation (mcts.py:191-261)."""
 
     playout_policy = "net"
     root_strategy = "policy"
@@ -311,6 +310,7 @@ class PolicyMCSAgent(BaseMCAgent):
         self.r_factor = r_factor
         self.spec = MLPSpec(input_size=self.state_length + 1, hidden_sizes=tuple(hidden_sizes), head_sizes=(1,))
         self.params = mlp_init(self.generator, self.spec, self.device)
+        self._episode = []
 
     def parameters(self):
         return self.params
@@ -334,6 +334,25 @@ class PolicyMCSAgent(BaseMCAgent):
         probs = np.exp([root_log_probs[a] for a in legal_actions])
         probs = probs / probs.sum()
         return np.random.choice(np.asarray(legal_actions, np.int64), size=K, p=probs)
+
+    # ----------------------------------------------------------------- learn
+
+    def learn(
+        self, state, reward, action, done, next_state, next_reward, episode_end, num_episode,
+        legal_actions=None, **kwargs,
+    ):
+        batch = episode_batch(self, kwargs["step_record"], reward, episode_end)
+        if batch is None:
+            return 0.0
+        leaves, live = grad_leaves(self.params)
+        loss = self._loss(live, batch)
+        self.params, self.opt_state = optimizer_step(self.optimizer, self.params, self.opt_state, loss, leaves)
+        return float(loss.detach())
+
+    def _loss(self, params, batch):
+        """Imitate the episode's own search choices (mcts.py:245-256)."""
+        logits = action_in_input_logits(self.spec, params, batch["state"], batch["legal_cards"])
+        return -torch.sum(onehot_select(torch.log_softmax(logits, dim=-1), batch["chosen"]))
 
 
 class PUCTAgent(PolicyMCSAgent):
@@ -431,6 +450,14 @@ class PUCTCustomedAgent(PUCTAgent):
         logp, values = logp.cpu().numpy(), values.cpu().numpy()[: len(legal_actions)]
         idx = int(np.argmax(values))
         return int(legal_actions[idx]), {"log_prob": float(logp[idx]), "outcome": float(values[idx])}
+
+    def _loss(self, params, batch):
+        """The chosen card's value against the episode return, plus self-imitation."""
+        logp, values = _policy_value(self.spec, params, batch["state"], batch["legal_cards"])
+        chosen = batch["chosen"]
+        reward_sum = torch.sum(batch["reward"]) / self.r_factor
+        outcome_loss = torch.mean((onehot_select(values, chosen) - reward_sum) ** 2)
+        return outcome_loss - torch.sum(onehot_select(logp, chosen))
 
 
 def _policy_value(spec: MLPSpec, params, state, legal_cards):

@@ -11,10 +11,12 @@ from .per import (
     per_update,
 )
 from .ring import RingState, circular_write, ring_add_batch, ring_init, ring_sample
+from .sequence import SeqState, seq_flush, seq_init, seq_latest, seq_sample, seq_store, seq_store_batch
 
 __all__ = [
     "PERState",
     "RingState",
+    "SeqState",
     "circular_write",
     "per_add_batch",
     "per_clone",
@@ -26,4 +28,10 @@ __all__ = [
     "ring_add_batch",
     "ring_init",
     "ring_sample",
+    "seq_flush",
+    "seq_init",
+    "seq_latest",
+    "seq_sample",
+    "seq_store",
+    "seq_store_batch",
 ]

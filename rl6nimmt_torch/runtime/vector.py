@@ -14,10 +14,17 @@
   double/dueling Bellman updates.  ``kernel_act_rollout=True`` plays the
   games in K4; ``kernel_insert=True`` plays the games AND writes the
   transitions into the replay planes in K5.
+* :func:`make_reinforce_rollout` / :func:`make_reinforce_train_step` -- the
+  action-in-input REINFORCE learner trained from every seat of every game
+  (the fused-gradient step by default).
+* :func:`make_acer_rollout` / :func:`make_acer_selfplay_step` -- the ACER
+  self-play cycle over the device sequence buffer.
 
 PyTorch runs eagerly: the make_* functions return plain Python closures.  The cycle
 takes its randomness either from a ``torch.Generator`` or injected as a
-:class:`CycleRandomness`, which is how the tests replay the JAX key schedule.
+:class:`CycleRandomness` (:class:`RolloutRandomness` for REINFORCE,
+:class:`AcerRandomness` for ACER), which is how the tests replay the JAX key
+schedule.
 """
 
 from __future__ import annotations
@@ -29,18 +36,22 @@ from typing import List, Optional
 import torch
 from torch.profiler import record_function
 
-from ..agents.dqn import Adam, DQNConfig, learn_noise, make_learn_step, q_network_spec, q_values
+from ..agents.dqn import (Adam, DQNConfig, grad_leaves, grads_of, learn_noise, make_learn_step, optimizer_apply,
+                          q_network_spec, q_values)
+from ..agents.reinforce import action_in_input_logits, log_probs_and_entropy
 from ..buffers.per import per_add_batch, per_mark_batch, per_sample, per_update
 from ..buffers.ring import ring_add_batch, ring_sample
+from ..buffers.sequence import seq_sample, seq_store_batch
 from ..engine.env import card_points_formula, deal, init_from_deck, observe, shift_hands, step
 from ..engine.state import EnvConfig
-from ..nets import draw_mlp_noise, noisy_effective_params
+from ..nets import MLPSpec, draw_mlp_noise, noisy_effective_params
 from ..ops.act_rollout_check import turn_slice
 from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_rollout_kernel
 from ..ops.game_kernel import deal_games, play_random_games, random_pick_words, random_picks
 from ..ops.step_kernel import resolve_turn_t
 from ..utils.device import resolve_device
 from ..utils.ops import onehot_select, uniform_index
+from ..utils.returns import discounted_returns
 
 NEG_INF = -1e9
 
@@ -444,5 +455,320 @@ def make_dqn_selfplay_step(
             "mean_score": scores.to(torch.float32).mean(),
         }
         return params, target_params, opt_state, buf, metrics
+
+    return cycle
+
+
+# ------------------------------------------------------- REINFORCE self-play
+
+
+@dataclass
+class Trajectory:
+    """Per-turn records for every seat: leading axes ``[T, G, P]``."""
+
+    obs: torch.Tensor          # f32[T, G, P, S]
+    legal_cards: torch.Tensor  # i32[T, G, P, H]
+    chosen: torch.Tensor       # i32[T, G, P] index into legal_cards
+    reward: torch.Tensor       # f32[T, G, P] (current-step reward)
+
+
+@dataclass
+class RolloutRandomness:
+    """Everything random one policy rollout consumes.
+
+    * ``decks`` ``int[G, C]`` (dealt with ``init_from_deck``) or ``deal_seed``
+      (dealt by K2 on the card, its twin on the CPU);
+    * ``gumbel`` ``f32[T, G, P, H]``: turn t's pick is ``argmax(logits +
+      gumbel[t])`` over the hand slots, which is ``jax.random.categorical``.
+    """
+
+    gumbel: torch.Tensor
+    decks: Optional[torch.Tensor] = None
+    deal_seed: Optional[int] = None
+
+
+def draw_rollout_randomness(cfg: EnvConfig, num_games: int, generator: torch.Generator) -> RolloutRandomness:
+    """Draw one rollout's :class:`RolloutRandomness` on the generator's device."""
+    from ..agents.search import draw_gumbel
+
+    dev = generator.device
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
+    shape = (cfg.max_turns, num_games, cfg.num_players, cfg.hand_size)
+    return RolloutRandomness(gumbel=draw_gumbel(generator, shape, dev), deal_seed=seed)
+
+
+def _initial_state(cfg: EnvConfig, rnd: RolloutRandomness, num_games: int, dev):
+    """The dealt games of ``rnd``, after checking its shapes."""
+    want = (cfg.max_turns, num_games, cfg.num_players, cfg.hand_size)
+    if tuple(rnd.gumbel.shape) != want:
+        raise ValueError(f"gumbel has shape {tuple(rnd.gumbel.shape)}, expected {want}")
+    if rnd.decks is not None and tuple(rnd.decks.shape) != (num_games, cfg.num_cards):
+        raise ValueError(f"decks have shape {tuple(rnd.decks.shape)}, expected {(num_games, cfg.num_cards)}")
+    if rnd.decks is not None:
+        return init_from_deck(cfg, rnd.decks.to(dev))
+    return deal(cfg, rnd.deal_seed, num_games, device=dev)
+
+
+def _fold(x: torch.Tensor, num_games: int, cfg: EnvConfig) -> torch.Tensor:
+    """``[T, G, P, ...] -> [G*P, T, ...]``: row ``g*P + p`` is seat (g, p)'s
+    episode in time order."""
+    return x.movedim(0, 2).reshape((num_games * cfg.num_players, cfg.max_turns) + tuple(x.shape[3:]))
+
+
+def _pick(logits: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
+    """``categorical(logits)`` over the last axis as ``argmax(logits + gumbel)``; int64."""
+    return torch.argmax(logits.detach() + gumbel.to(logits.device), dim=-1)
+
+
+def make_reinforce_rollout(cfg: EnvConfig, spec: MLPSpec, num_games: int, device="cuda"):
+    """``(params, rng) -> (Trajectory, scores int32[G, P])`` self-play with the
+    action-in-input policy; ``rng`` is a :class:`RolloutRandomness` or a
+    ``torch.Generator``.  On the card: one K2 deal and ten K1 turns."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def rollout(params, rng):
+        rnd = rng if isinstance(rng, RolloutRandomness) else draw_rollout_randomness(cfg, num_games, rng)
+        state = _initial_state(cfg, rnd, num_games, dev)
+        recs = []
+        for t in range(cfg.max_turns):
+            obs, _ = observe(cfg, state)
+            hands = state.hands_sorted
+            idx = _pick(action_in_input_logits(spec, params, obs, hands), rnd.gumbel[t])
+            state, rewards = step(cfg, state, onehot_select(hands, idx))
+            recs.append((obs, hands, idx.to(torch.int32), rewards.to(torch.float32)))
+        traj = Trajectory(*(torch.stack(x) for x in zip(*recs)))
+        return traj, -state.scores
+
+    return rollout
+
+
+def make_reinforce_train_step(
+    cfg: EnvConfig,
+    spec: MLPSpec,
+    optimizer: Adam,
+    num_games: int,
+    gamma: float = 0.99,
+    r_factor: float = 1.0,
+    actor_weight: float = 1.0,
+    entropy_weight: float = 0.0,
+    reward_lag: bool = True,
+    fused_grad: bool = True,
+    axis_name: Optional[str] = None,
+    device="cuda",
+):
+    """Self-play + one REINFORCE update over every seat of G games.
+
+    ``train_step(params, opt_state, rng) -> (params, opt_state, {"loss",
+    "mean_score"})`` with ``rng`` a :class:`RolloutRandomness` or a
+    ``torch.Generator``.  The per-episode loss is the reference's
+    (policy.py:174-196), averaged over the G x P seats; ``reward_lag`` keeps
+    the session's lagged reward.
+
+    ``fused_grad=True`` (the default) differentiates through the rollout's own
+    policy forward: the turns are unrolled, each turn's forward runs on its
+    ``H - t`` live hand slots only (padded back to H with ``NEG_INF``), one
+    forward serves the pick (on detached logits) and the loss, and the
+    backward runs through the whole rollout.  ``fused_grad=False`` plays under
+    ``no_grad`` and recomputes the logits inside the loss.  The two give the
+    same actions and the same loss to float round-off.  ``axis_name`` (data
+    parallel) is ROADMAP queue 1 item 11.
+    """
+    if axis_name is not None:
+        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
+    dev = resolve_device(device)
+    G, P, T, H = num_games, cfg.num_players, cfg.max_turns, cfg.hand_size
+    rollout = make_reinforce_rollout(cfg, spec, G, dev)
+    disc = torch.pow(gamma, torch.arange(T, dtype=torch.float32, device=dev))
+
+    def episode_losses(chosen_logp, entropy, rewards):
+        """Per-seat losses ``[...]`` from ``[T, ...]`` log-probs, entropies and raw rewards."""
+        reward = (lag_rewards(rewards) if reward_lag else rewards).detach() * r_factor
+        returns = discounted_returns(reward, gamma)
+        extra = (1,) * (returns.dim() - 1)
+        actor = -torch.sum(disc.view(T, *extra) * returns * chosen_logp, dim=0)
+        return actor_weight * actor + entropy_weight * -torch.sum(entropy, dim=0)
+
+    def fused_loss(live, rnd):
+        state = _initial_state(cfg, rnd, G, dev)
+        chosen_logp, entropy, rewards = [], [], []
+        for t in range(T):
+            obs, _ = observe(cfg, state)
+            logits = action_in_input_logits(spec, live, obs, state.hands_sorted[:, :, : H - t])
+            if t:
+                logits = torch.cat([logits, logits.new_full((G, P, t), NEG_INF)], dim=-1)
+            idx = _pick(logits, rnd.gumbel[t])
+            logp, ent = log_probs_and_entropy(logits)
+            chosen_logp.append(onehot_select(logp, idx))
+            entropy.append(ent)
+            state, r = step(cfg, state, onehot_select(state.hands_sorted, idx))
+            rewards.append(r.to(torch.float32))
+        losses = episode_losses(torch.stack(chosen_logp), torch.stack(entropy), torch.stack(rewards))
+        return losses.mean(), -state.scores
+
+    def recompute_loss(live, rnd):
+        traj, scores = rollout(live, rnd)
+        logits = action_in_input_logits(spec, live, traj.obs, traj.legal_cards)      # [T, G, P, H]
+        logp, entropy = log_probs_and_entropy(logits)
+        losses = episode_losses(onehot_select(logp, traj.chosen), entropy, traj.reward)
+        return losses.mean(), scores
+
+    loss_fn = fused_loss if fused_grad else recompute_loss
+
+    def train_step(params, opt_state, rng):
+        rnd = rng if isinstance(rng, RolloutRandomness) else draw_rollout_randomness(cfg, G, rng)
+        # The three spans name the step's phases in a torch.profiler trace.
+        with record_function("reinforce.rollout"):
+            leaves, live = grad_leaves(params)
+            loss, scores = loss_fn(live, rnd)
+        with record_function("reinforce.backward"):
+            grads = grads_of(loss, leaves, params)
+        with record_function("reinforce.adam"):
+            params, opt_state = optimizer_apply(optimizer, params, opt_state, grads)
+        return params, opt_state, {"loss": loss.detach(), "mean_score": scores.to(torch.float32).mean()}
+
+    return train_step
+
+
+# ------------------------------------------------------------ ACER self-play
+
+
+@dataclass
+class AcerRandomness:
+    """Everything random one ACER cycle consumes: the rollout's, the on-policy
+    subsample ``on_idx int[k_on]`` (distinct, in ``[0, G*P)``; unused when the
+    cycle trains on every fresh sequence) and the off-policy sample ``off_idx
+    int[minibatch]`` (in ``[0, max(size, 1))`` of the buffer after the store)."""
+
+    rollout: RolloutRandomness
+    off_idx: torch.Tensor
+    on_idx: Optional[torch.Tensor] = None
+
+
+def acer_sequence_example(cfg: EnvConfig) -> dict:
+    """One step of an ACER sequence, the example for ``seq_init``."""
+    H = cfg.hand_size
+    return {
+        "state": torch.zeros(cfg.state_length, dtype=torch.float32),
+        "legal_cards": torch.zeros(H, dtype=torch.int32),
+        "log_probs": torch.zeros(H, dtype=torch.float32),
+        "action_id": torch.zeros((), dtype=torch.int32),
+        "reward": torch.zeros((), dtype=torch.float32),
+        "done": torch.zeros((), dtype=torch.float32),
+    }
+
+
+def make_acer_rollout(cfg: EnvConfig, spec: MLPSpec, num_games: int, r_factor: float, device="cuda"):
+    """``(params, rng) -> (seqs, scores int32[G, P])`` self-play with the
+    actor-critic sampling policy (the host agent's ``forward``).
+
+    ``seqs`` holds one sequence per seat, ``[G*P, T, ...]`` (row ``g*P + p``):
+    the fields :func:`~..agents.acer.make_acer_train_step` reads, the current
+    step's reward times ``r_factor`` (no lag, as the reference) and ``length``
+    ``T``.  On the card: one K2 deal and ten K1 turns.
+    """
+    from ..agents.acer import actor_critic_heads
+
+    dev = resolve_device(device)
+    G, P, T = num_games, cfg.num_players, cfg.max_turns
+
+    @torch.no_grad()
+    def rollout(params, rng):
+        rnd = rng if isinstance(rng, RolloutRandomness) else draw_rollout_randomness(cfg, G, rng)
+        state = _initial_state(cfg, rnd, G, dev)
+        recs = {k: [] for k in ("state", "legal_cards", "log_probs", "action_id", "reward", "done")}
+        for t in range(T):
+            obs, _ = observe(cfg, state)
+            hands = state.hands_sorted
+            log_probs, _ = actor_critic_heads(spec, params, obs, hands)
+            idx = _pick(torch.where(hands >= 0, log_probs, -torch.inf), rnd.gumbel[t])
+            state, rewards = step(cfg, state, onehot_select(hands, idx))
+            for k, v in (("state", obs), ("legal_cards", hands), ("log_probs", log_probs),
+                         ("action_id", idx.to(torch.int32)), ("reward", rewards.to(torch.float32) * r_factor),
+                         ("done", torch.full((G, P), float(t == T - 1), device=dev))):
+                recs[k].append(v)
+        seqs = {k: _fold(torch.stack(v), G, cfg) for k, v in recs.items()}
+        seqs["length"] = torch.full((G * P,), T, dtype=torch.int32, device=dev)
+        return seqs, -state.scores
+
+    return rollout
+
+
+def make_acer_selfplay_step(
+    cfg: EnvConfig,
+    spec: MLPSpec,
+    optimizer: Adam,
+    num_games: int,
+    gamma: float = 0.99,
+    r_factor: float = 0.1,
+    truncate: float = 1.0,
+    minibatch: int = 64,
+    actor_weight: float = 1.0,
+    critic_weight: float = 1.0,
+    on_policy_sequences: Optional[int] = 512,
+    packed_rows: bool = False,
+    axis_name: Optional[str] = None,
+    device="cuda",
+):
+    """ACER self-play cycle: rollout, sequence-buffer store, two updates.
+
+    ``cycle(params, opt_state, buf, rng) -> (params, opt_state, buf,
+    metrics)``: ``buf`` from ``seq_init(capacity, max_turns,
+    acer_sequence_example(cfg))``, updated in place; ``rng`` an
+    :class:`AcerRandomness` or a ``torch.Generator``.  One call plays G games,
+    stores all ``G*P`` episode sequences, then runs one on-policy update on the
+    fresh sequences and one off-policy update on a uniform ``minibatch`` of
+    stored ones.  ``on_policy_sequences`` bounds the on-policy phase: ``None``
+    trains on all ``G*P`` fresh sequences, an integer k on a uniform subsample
+    of k of them without replacement (k clamps to ``G*P``, and at ``G*P`` the
+    whole fresh batch is used, in order).  ``packed_rows`` selects the packed
+    train step (the sequences are always full aligned episodes).  Metrics:
+    the on-policy actor, correction and critic losses, the off-policy actor
+    and critic losses and the mean score.  ``axis_name`` (data parallel) is
+    ROADMAP queue 1 item 11.
+    """
+    from ..agents.acer import make_acer_train_step
+
+    if axis_name is not None:
+        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
+    dev = resolve_device(device)
+    G = num_games
+    rollout = make_acer_rollout(cfg, spec, G, r_factor, dev)
+    train = make_acer_train_step(spec, optimizer, gamma, truncate, actor_weight, critic_weight,
+                                 packed_rows=packed_rows)
+    n_fresh = G * cfg.num_players
+    k_on = None if on_policy_sequences is None else min(on_policy_sequences, n_fresh)
+
+    def cycle(params, opt_state, buf, rng):
+        rnd = rng if isinstance(rng, AcerRandomness) else None
+        # The four spans name the cycle's phases in a torch.profiler trace.
+        with record_function("acer.rollout"):
+            seqs, scores = rollout(params, rnd.rollout if rnd else draw_rollout_randomness(cfg, G, rng))
+        with record_function("acer.store"):
+            buf = seq_store_batch(buf, {k: v for k, v in seqs.items() if k != "length"}, seqs["length"])
+        with record_function("acer.on"):
+            on_batch = seqs
+            if k_on is not None and k_on < n_fresh:
+                if rnd is None:
+                    idx = torch.randperm(n_fresh, generator=rng, device=rng.device)[:k_on]
+                else:
+                    idx = rnd.on_idx
+                    if idx is None or idx.shape != (k_on,) or not 0 <= int(idx.min()) <= int(idx.max()) < n_fresh:
+                        raise ValueError(f"expected {k_on} on-policy indices in [0, {n_fresh}), got {idx}")
+                on_batch = {k: v[idx.to(dev)] for k, v in seqs.items()}
+            params, opt_state, on_losses = train(params, opt_state, on_batch)
+        with record_function("acer.off"):
+            _, batch, lengths = seq_sample(buf, minibatch, idx=rnd.off_idx if rnd else None,
+                                           generator=None if rnd else rng)
+            params, opt_state, off_losses = train(params, opt_state, dict(batch, length=lengths))
+        metrics = {
+            "actor_loss": on_losses[0],
+            "correction_loss": on_losses[1],
+            "critic_loss": on_losses[2],
+            "off_actor_loss": off_losses[0],
+            "off_critic_loss": off_losses[2],
+            "mean_score": scores.to(torch.float32).mean(),
+        }
+        return params, opt_state, buf, metrics
 
     return cycle

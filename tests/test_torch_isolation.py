@@ -45,7 +45,10 @@ def test_module_list_covers_the_ported_slice():
               # the search core
               "nets.normalize", "agents.reinforce", "agents.base", "agents.search", "agents.device_search",
               "agents.mcs", "runtime.device_match", "experiments.search_latency",
-              "experiments.device_match_bench", "runtime.search_check"):
+              "experiments.device_match_bench", "runtime.search_check",
+              # REINFORCE and ACER
+              "utils.returns", "agents.acer", "buffers.sequence", "buffers.host", "buffers.sumtree_native",
+              "runtime.host_loop", "runtime.learner_check", "experiments.trainable_bench"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -59,7 +62,12 @@ def test_no_source_imports_jax(path):
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
-    from rl6nimmt_torch.agents import device_search, mcs, search
+    from rl6nimmt_torch.agents import acer, device_search, mcs, reinforce, search
+    from rl6nimmt_torch.buffers import seq_init
+    from rl6nimmt_torch.experiments import trainable_bench
+    from rl6nimmt_torch.runtime import vector
+    from rl6nimmt_torch.runtime.host_loop import play_games
+    from rl6nimmt_torch.runtime.learner_check import learners_card_against_cpu
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
     from rl6nimmt_torch.buffers import per_init, per_init_kd, ring_init
     from rl6nimmt_torch.engine import EnvConfig, deal
@@ -115,6 +123,22 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: search_check.exact_prior(net),
         lambda: search_latency.main([]),
         lambda: device_match_bench.main([]),
+        # REINFORCE and ACER
+        lambda: vector.make_reinforce_rollout(cfg, net, 8),
+        lambda: vector.make_reinforce_train_step(cfg, net, Adam(), 8),
+        lambda: vector.make_acer_rollout(cfg, net, 8, 0.1),
+        lambda: vector.make_acer_selfplay_step(cfg, net, Adam(), 8),
+        lambda: seq_init(16, 10, vector.acer_sequence_example(cfg)),
+        lambda: reinforce.BatchedReinforceAgent(seed=0),
+        lambda: reinforce.MaskedReinforceAgent(seed=0),
+        lambda: acer.BatchedActionValueActorCriticAgent(seed=0),
+        lambda: acer.BatchedACERAgent(seed=0),
+        lambda: mcs.PolicyMCSAgent(seed=0),
+        lambda: play_games([mcs.MCSAgent(seed=0, device="cpu")] * 2),
+        lambda: learners_card_against_cpu(8),
+        lambda: trainable_bench.ReinforceArm(cfg, 8, "cuda"),
+        lambda: trainable_bench.AcerArm(cfg, 8, "cuda"),
+        lambda: trainable_bench.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

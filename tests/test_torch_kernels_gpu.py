@@ -428,3 +428,59 @@ def test_argmax_first_maximum_on_card():
     act_sum = torch.tensor([[-4.0, -2.0, -2.0, 0.0], [-1.0, -1.0, -1.0, -1.0]], device=dev)
     act_cnt = torch.tensor([[2.0, 1.0, 1.0, 0.0], [1.0, 1.0, 1.0, 1.0]], device=dev)
     assert _best(act_sum, act_cnt).tolist() == [0, 0]
+
+
+# ------------------------------------------------------- REINFORCE and ACER
+
+
+@pytest.mark.parametrize("G", [4096, 64])
+def test_learner_path_k1_k2_match_twins(G):
+    """K2 and K1 at the learners' shapes (P = 4, the flagship instances), on
+    the deals and the turns of a REINFORCE rollout: each turn's K1 output
+    equals its twin's on the same board and actions."""
+    from rl6nimmt_torch.agents.reinforce import action_in_input_logits
+    from rl6nimmt_torch.agents.search import draw_gumbel
+    from rl6nimmt_torch.nets import MLPSpec
+
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    for a, b in zip(deal_games(cfg, 11, G, device=dev), deal_games_plain(cfg, 11, G, dev)):
+        assert torch.equal(a, b)
+    spec = MLPSpec(cfg.state_length + 1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = mlp_init(gen, spec)
+    state = deal(cfg, 11, G, device=dev)
+    for _ in range(cfg.max_turns):
+        obs, _ = observe(cfg, state)
+        logits = action_in_input_logits(spec, params, obs, state.hands_sorted)
+        idx = torch.argmax(logits + draw_gumbel(gen, logits.shape, dev), dim=-1)
+        acts = torch.gather(state.hands_sorted, -1, idx[..., None]).squeeze(-1).contiguous()
+        for a, b in zip(resolve_turn(cfg, state.board, state.row_len, acts),
+                        resolve_turn_plain(cfg, state.board, state.row_len, acts)):
+            assert torch.equal(a, b)
+        state, _ = step(cfg, state, acts)
+
+
+def test_learners_on_card_equal_cpu():
+    """One REINFORCE step and one ACER cycle at G = 64 on the card and on the
+    CPU on one randomness (``runtime/learner_check.py``)."""
+    from rl6nimmt_torch.runtime.learner_check import learners_card_against_cpu
+
+    _cuda()
+    out = learners_card_against_cpu(64)
+    assert out["equal"], ({k: v for k, v in out["exact"].items() if not v},
+                          {k: v for k, v in out["f32"].items() if v > 1.0})
+
+
+@pytest.mark.parametrize("learner", ["reinforce", "acer"])
+def test_learner_step_launches_k2_once_and_k1_ten_times(learner):
+    from rl6nimmt_torch.experiments.trainable_bench import AcerArm, ReinforceArm
+
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    arm = ReinforceArm(cfg, 256, dev) if learner == "reinforce" else AcerArm(cfg, 256, dev)
+    _build.reset_launches()
+    metrics = arm.step()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": cfg.max_turns}
+    assert all(torch.isfinite(v).all() for v in metrics.values())

@@ -418,8 +418,9 @@ def test_agents_serve_without_learning_and_clone():
         if cls is MCSAgent:
             assert agent.learn() is None
         else:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                agent.learn(None, 0.0, action, False, None, 0.0, False, 0, step_record=info["step_record"])
+            # Before an episode's end a learn call only records the step.
+            assert agent.learn(None, 0.0, action, False, None, 0.0, False, 0,
+                               step_record=info["step_record"]) == 0.0
             agent.train()
             assert agent.opt_state is not None and agent.clone().opt_state.count == 0
     assert math.isclose(PUCTAgent(env=EnvConfig(P), seed=0, device="cpu").c_puct, 2.0)
