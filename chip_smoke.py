@@ -7,7 +7,8 @@ process per source), then:
 
 1. prints the card, its power limit, the torch/CUDA versions, the build time
    and ptxas registers/spills per kernel, and requires 0 B stack frame and 0
-   spills of every K1, K2 and K3 instance;
+   spills of every K1, K2, K3 and K6 ``env``/``obs`` instance and of K7's
+   ``probe_k7``;
 2. holds K1-K5 against their plain PyTorch twins at the main path's shapes
    (P=4, G=4096, hidden 64): K1-K3 bit-exact (K1 in both layouts, the
    games-last entry also against the row-major one on the transposed state,
@@ -35,7 +36,8 @@ process per source), then:
    act-rollout ablation's entry point (``env``, ``obs``, ``mm`` on K6,
    ``full`` on K4; chains of ABLATE_CHAIN generations) and the probe entry
    point (K7's seven bodies, each against its twin); then holds K6 ``env``
-   and ``obs`` bit-exact to their twins, ``env`` to K3 on the same seed and
+   and ``obs`` bit-exact to their twins, ``env`` to K3 on the same seed (at
+   the flagship shape and at P=6, G=333 on the runtime-sized instances) and
    ``mm`` at action agreement >= 0.999, and prints the attribution of K4's
    time: each variant's ms per generation, ms per launch at G=4096 (128
    blocks of 32 games, one per SM) and at G=16,384, its bound and its ptxas
@@ -101,6 +103,9 @@ K1_INSTANCES = tuple(f"resolve_turn_kernel<{layout},{sizes}>" for layout in (0, 
 K2_K3_FLAGSHIP = "4,4,6,10,104"
 K2_K3_INSTANCES = tuple(f"{k}_kernel<{sizes}>" for k in ("deal_games", "play_random_games")
                         for sizes in (K2_K3_FLAGSHIP, "0,0,0,0,0"))
+# K6 env's and obs's, the same pair each (they play K3's games in K3's design), and K7's k7.
+K6_K7_INSTANCES = tuple(f"act_ablate_{v}_kernel<{sizes}>" for v in ("env", "obs")
+                        for sizes in (K2_K3_FLAGSHIP, "0,0,0,0,0")) + ("probe_k7_kernel",)
 PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
@@ -490,13 +495,15 @@ def main():
     ptxas = _build.BUILD_INFO["ptxas"]     # from this build, or kept beside a built library
     for name, info in sorted(ptxas.items()):
         log(f"[1] ptxas {name}: {info}")
-    # K1's four instances (two layouts, flagship and runtime sizes) and K2's and
-    # K3's two each (flagship and runtime sizes): nothing in local memory.
-    lean_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES + K2_K3_INSTANCES}
+    # K1's four instances (two layouts, flagship and runtime sizes), K2's, K3's,
+    # K6 env's and obs's two each (flagship and runtime sizes) and K7's k7:
+    # nothing in local memory.
+    lean_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES + K2_K3_INSTANCES + K6_K7_INSTANCES}
     if any(not all(re.search(rf"(?<![\d.]){z}", v) for z in ("0 bytes stack frame", "0 bytes spill stores",
                                                               "0 bytes spill loads"))
            for v in lean_ptxas.values()):
-        raise AssertionError(f"K1, K2 and K3 instances must use no stack and no spills: {lean_ptxas}")
+        raise AssertionError(f"K1, K2, K3, K6 env/obs and K7 k7 instances must use no stack and no spills: "
+                             f"{lean_ptxas}")
 
     cfg = EnvConfig(4)
     dqn = DQNConfig(**FLAGSHIP)
@@ -754,8 +761,8 @@ def main():
         log(json.dumps({"kernel": name, "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
                         "launches_per_cycle": per, "shape": meta[name][2], "card": card}))
     # Launch shapes, as the built library has them, and resources (K1-K5).
-    def ptxas_of(kname):
-        return ptxas.get(f"{kname}_kernel", "n/a")
+    def ptxas_of(kname):   # a template kernel's line is its flagship instance's
+        return ptxas.get(f"{kname}_kernel", ptxas.get(f"{kname}_kernel<{K2_K3_FLAGSHIP}>", "n/a"))
 
     games_per_block = _build.library().rl6_play_games()
     k1_games, k1_threads = _build.library().rl6_resolve_games(), _build.library().rl6_resolve_threads()
@@ -810,11 +817,14 @@ def main():
             raise AssertionError(f"K6 {v} vs twin: action agreement {agree}, {games}/{G} games identical")
         log(f"[6] K6 {v} vs twin at G={G}: action agreement {agree:.6f}, {games}/{G} games identical"
             + (", deals exact" if v != "env" else ""))
-    k3_rewards, _ = play_random_games(acfg, 91, G, device=dev)
-    env_rewards = make_act_ablate_kernel(acfg, G, ablate.HID, "env")(91, *aw)[2]
-    if not torch.equal(env_rewards.sum(dim=0), k3_rewards):
-        raise AssertionError("K6 env's games differ from K3's on the same seed")
-    log(f"[6] K6 env's per-game reward sums == K3 (play_random_games) on seed 91, {G} games")
+    # env plays K3's games: at the flagship shape, and on both kernels' runtime-sized instances.
+    for ecfg, games in ((acfg, G), (EnvConfig(6), 333)):
+        k3_rewards, _ = play_random_games(ecfg, 91, games, device=dev)
+        env_rewards = make_act_ablate_kernel(ecfg, games, ablate.HID, "env")(91, *ablate.weights(ecfg, dev))[2]
+        if not torch.equal(env_rewards.sum(dim=0), k3_rewards):
+            raise AssertionError(f"K6 env's games differ from K3's on the same seed (P={ecfg.num_players}, "
+                                 f"G={games})")
+    log(f"[6] K6 env's per-game reward sums == K3 (play_random_games) on seed 91: P=4, {G} games and P=6, 333")
 
     # Bounds per variant at g games (3.35 TB/s, 67 TFLOP/s f32, integer work at the f32 rate).
     def ablate_work(v, g):
@@ -861,8 +871,14 @@ def main():
         nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a)) \
             + out.numel() * out.element_size()
         # f32 multiply-adds of the dots, compares of the argmaxes; the copies have none
-        ops = (2 * args[0].numel() * args[1].shape[-1] if key in ("k1", "k6", "k7")
+        ops = (2 * args[0].numel() * args[1].shape[-1] if key in ("k1", "k6")
                else args[0].numel() if key == "k3" else 0)
+        if key == "k7":   # the mask leaves one dot a row: its h row and one wa column a distinct hand
+            h3, wa, hand = args
+            legal = hand[(hand >= 0) & (hand < wa.shape[1])]
+            nbytes = (hand.numel() * hand.element_size() + out.numel() * out.element_size()
+                      + (legal.numel() + torch.unique(legal).numel()) * h3.shape[-1] * h3.element_size())
+            ops = 2 * legal.numel() * h3.shape[-1]
         b_ms, b_by = bound_ms(nbytes, ops)
         ms = cuda_ms(lambda: kernel(*args), 200, REPS)
         dev_ms = device_ms(lambda: kernel(*args), 200, kernel_of[f"probe_{key}"])

@@ -46,7 +46,6 @@ constexpr int TILE = 128;  // games a tile of the column map
 static_assert(TILE % rl6::PLAY_GAMES == 0, "a block's games lie in one tile");
 
 struct InsertEmit {
-  static constexpr bool kObs = true;
   int8_t* state;
   int8_t* next;
   float* scal;

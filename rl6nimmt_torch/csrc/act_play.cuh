@@ -1,5 +1,5 @@
 // The noisy-DQN play loop shared by K4 (act_rollout_kernel.cu), K5
-// (act_insert_kernel.cu) and K6's ablation variants (act_ablate_kernel.cu).
+// (act_insert_kernel.cu) and K6's mm variant (act_ablate_kernel.cu).
 //
 // Replaces: rl6nimmt_tpu/ops/act_rollout_kernel.py:_play_block, which both TPU
 // kernels build on with injected emit_obs/emit_action/emit_rewards.  What it
@@ -41,7 +41,6 @@
 // (PARITY_TORCH.md section 7).
 //
 // Interfaces.  The actor:
-//   kForward            whether the loop stages weights and runs the forward;
 //   adv_rows(H, A)      rows of the [rows][33] advantage tile it needs;
 //   head(s, tile, p, count, c)  workers: hidden chunk c's share of seat p's
 //                       advantages into s.adv (c == 0 starts them at ba);
@@ -49,7 +48,6 @@
 //                       plays from its sorted hand of `count` live cards,
 //                       called once per seat-turn in seat order.
 // The emitter:
-//   kObs                whether it writes observations (flush is called);
 //   stage_bytes(P, S)   shared bytes it needs;
 //   flush(t, tile)      workers: turn t's observations from the feature tile
 //                       (t == n_turns: the terminal one);
@@ -98,33 +96,31 @@ struct PlayLayout {
   int F, A4, hs, bs, ss;
   size_t w1, b1, wa, ba, x, h, adv, hands, board, rows, scratch, deck, stage, bytes;
 
-  __host__ __device__ PlayLayout(const Cfg& c, int S, int A, int adv_rows, bool forward,
-                                 size_t stage_bytes) {
+  __host__ __device__ PlayLayout(const Cfg& c, int S, int A, int adv_rows, size_t stage_bytes) {
     const size_t n = PLAY_GAMES, f4 = sizeof(float);
     F = S - c.H + c.P * c.H;     // the game block, then every seat's hand
     A4 = (A + 3) / 4 * 4;
     hs = (c.P * c.H) | 1;        // odd strides: game threads hit distinct banks
     bs = (c.R * c.T) | 1;
     ss = (4 * c.P + c.R) | 1;    // cards, sorted cards, players, rewards, seeds
-    const size_t fw = forward ? 1 : 0;
     size_t at = 0;
-    w1 = take_smem(at, fw * f4 * S * HIDDEN_CHUNK);
-    b1 = take_smem(at, fw * f4 * HIDDEN_CHUNK);
-    wa = take_smem(at, fw * f4 * A4 * HS);
-    ba = take_smem(at, fw * f4 * A4);
+    w1 = take_smem(at, f4 * S * HIDDEN_CHUNK);
+    b1 = take_smem(at, f4 * HIDDEN_CHUNK);
+    wa = take_smem(at, f4 * A4 * HS);
+    ba = take_smem(at, f4 * A4);
     x = take_smem(at, f4 * F * n);
-    h = take_smem(at, fw * f4 * n * HS);
-    adv = take_smem(at, fw * f4 * adv_rows * ADV_STRIDE);
+    h = take_smem(at, f4 * n * HS);
+    adv = take_smem(at, f4 * adv_rows * ADV_STRIDE);
     hands = take_smem(at, 4 * n * hs);
     board = take_smem(at, 4 * n * bs);
     rows = take_smem(at, 4 * n * ROWS_STRIDE);
     scratch = take_smem(at, 4 * n * ss);
     // The deal's decks (n*C <= 4096 bytes) are dead before h is first written,
-    // so with a forward they share h's region (8,704 bytes).
-    deck = forward ? h : take_smem(at, n * c.C);
+    // so they share h's region (8,704 bytes).
+    deck = h;
     // The emitter's bytes; its flush ends before the turn's h is written, so
-    // with a forward they share h's region where they fit in it.
-    stage = forward && stage_bytes <= f4 * n * HS ? h : take_smem(at, stage_bytes);
+    // they share h's region where they fit in it.
+    stage = stage_bytes <= f4 * n * HS ? h : take_smem(at, stage_bytes);
     bytes = at;
   }
 };
@@ -279,7 +275,6 @@ __device__ __forceinline__ float advantage_chunk(const PlaySmem& s, int gl, int 
 // an illegal card.  The dueling V - mean(A) shift is a per-state constant and
 // is skipped, as on the TPU.
 struct GreedyActor {
-  static constexpr bool kForward = true;
   __host__ __device__ static int adv_rows(int H, int) { return H; }
 
   __device__ __forceinline__ void head(const PlaySmem& s, const PlayTile& tile, int p, int count, int c) {
@@ -327,14 +322,13 @@ __device__ inline void write_features(const Cfg& c, const Rows& rows, const int*
 // Bytes of dynamic shared memory a play-loop kernel with this actor and emitter needs.
 template <class Actor, class Emit>
 inline size_t play_smem_bytes(const Cfg& c, int S, int A) {
-  return PlayLayout(c, S, A, Actor::adv_rows(c.H, A), Actor::kForward, Emit::stage_bytes(c.P, S)).bytes;
+  return PlayLayout(c, S, A, Actor::adv_rows(c.H, A), Emit::stage_bytes(c.P, S)).bytes;
 }
 
 template <class Actor, class Emit>
 __device__ __forceinline__ void play_games(const PlayArgs& a, Actor& actor, Emit& emit) {
-  constexpr bool kForward = Actor::kForward, kSync = kForward || Emit::kObs;
   const Cfg& c = a.c;
-  const PlayLayout L(c, a.S, a.A, Actor::adv_rows(c.H, a.A), kForward, Emit::stage_bytes(c.P, a.S));
+  const PlayLayout L(c, a.S, a.A, Actor::adv_rows(c.H, a.A), Emit::stage_bytes(c.P, a.S));
   const PlaySmem s(play_smem(), L);
   const int H = c.H, P = c.P, n_game = a.S - H;
   const int NC = (a.Hd + HIDDEN_CHUNK - 1) / HIDDEN_CHUNK;  // chunks of the hidden layer
@@ -343,7 +337,6 @@ __device__ __forceinline__ void play_games(const PlayArgs& a, Actor& actor, Emit
   const bool worker = gl >= 32;
   const bool game = gl < nb;  // this thread plays game g
   const PlayTile tile{s.x, s.stage, n_game, H, P, a.S, g0, nb};
-  if (!kSync && worker) return;  // env: nothing but the game logic
 
   int* hands = s.hands + gl * L.hs;
   int* board = s.board + gl * L.bs;
@@ -360,13 +353,12 @@ __device__ __forceinline__ void play_games(const PlayArgs& a, Actor& actor, Emit
       for (int t = 1; t < c.T; ++t) board[r * c.T + t] = -1;
     }
     seed_aggregates(c, seeds, rows);
-    if (kSync) write_features(c, rows, board, hands, s.x, gl);
+    write_features(c, rows, board, hands, s.x, gl);
   } else if (gl < PLAY_GAMES) {  // past the ragged edge: a zero feature column
     for (int f = 0; f < L.F; ++f) s.x[f * PLAY_GAMES + gl] = 0.f;
   }
-  if constexpr (kForward)
-    if (worker) stage_weights(a, s, 0, 0);
-  if constexpr (kSync) __syncthreads();
+  if (worker) stage_weights(a, s, 0, 0);
+  __syncthreads();
 
   // Per turn the workers store the observations and run the forward, while
   // the game warp waits for each seat's advantages, then picks; between
@@ -376,32 +368,29 @@ __device__ __forceinline__ void play_games(const PlayArgs& a, Actor& actor, Emit
   for (int t = 0; t < a.n_turns; ++t) {
     const int count = H - t;
     if (worker) {
-      if constexpr (Emit::kObs) emit.flush(t, tile);
-      if constexpr (kForward)
-        if (NC == 1) hidden.shared_part(s, H, n_game);
+      emit.flush(t, tile);
+      if (NC == 1) hidden.shared_part(s, H, n_game);
     }
     for (int p = 0; p < P; ++p) {
-      if constexpr (kForward) {
-        for (int ch = 0; ch < NC; ++ch) {
-          if (worker) {
-            if (NC > 1) {  // chunk 0 of seat 0 was staged before the turn
-              if (ch > 0 || p > 0) {
-                worker_sync();  // the last chunk's h, w1 and wa are read
-                stage_weights(a, s, t, ch);
-                worker_sync();
-              }
-              hidden.shared_part(s, H, n_game);
+      for (int ch = 0; ch < NC; ++ch) {
+        if (worker) {
+          if (NC > 1) {  // chunk 0 of seat 0 was staged before the turn
+            if (ch > 0 || p > 0) {
+              worker_sync();  // the last chunk's h, w1 and wa are read
+              stage_weights(a, s, t, ch);
+              worker_sync();
             }
-            hidden.seat(s, H, n_game, p);
+            hidden.shared_part(s, H, n_game);
           }
-          if (ch == 0)
-            __syncthreads();  // h is ready, and the game warp has picked seat p-1 from adv
-          else if (worker)
-            worker_sync();  // h of chunk ch is ready
-          if (worker) actor.head(s, tile, p, count, ch);
+          hidden.seat(s, H, n_game, p);
         }
-        __syncthreads();  // seat p's advantages are ready; h and adv are free after the pick
+        if (ch == 0)
+          __syncthreads();  // h is ready, and the game warp has picked seat p-1 from adv
+        else if (worker)
+          worker_sync();  // h of chunk ch is ready
+        if (worker) actor.head(s, tile, p, count, ch);
       }
+      __syncthreads();  // seat p's advantages are ready; h and adv are free after the pick
       if (game) {
         int* hand = hands + p * H;
         const int slot = actor.pick(s, gl, count);
@@ -414,17 +403,12 @@ __device__ __forceinline__ void play_games(const PlayArgs& a, Actor& actor, Emit
       resolve_plays(c, board, rows, cards, rew, sorted, players);
       emit.rewards(t, g, rew);
     }
-    if constexpr (kSync) {
-      if constexpr (!kForward) __syncthreads();  // the flush has read this turn's features
-      // t + 1 == n_turns: the terminal observation, the n-step bootstrap target.
-      if (game) write_features(c, rows, board, hands, s.x, gl);
-      if constexpr (kForward)
-        if (worker && t + 1 < a.n_turns) stage_weights(a, s, t + 1, 0);
-      __syncthreads();
-    }
+    // t + 1 == n_turns: the terminal observation, the n-step bootstrap target.
+    if (game) write_features(c, rows, board, hands, s.x, gl);
+    if (worker && t + 1 < a.n_turns) stage_weights(a, s, t + 1, 0);
+    __syncthreads();
   }
-  if constexpr (Emit::kObs)
-    if (worker) emit.flush(a.n_turns, tile);
+  if (worker) emit.flush(a.n_turns, tile);
 }
 
 // ------------------------------------------------------------------- host

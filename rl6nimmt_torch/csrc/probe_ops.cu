@@ -16,11 +16,11 @@
 // block of 256, so 128 games spread over 8 SMs rather than one thread per
 // game on one SM); the block stages W1 and its games' columns of C in shared
 // memory in one round of 16-byte loads (at F = 47 four a thread, all in
-// flight at once), then each thread sums its units over F in order; k3 and
-// k7 reduce with a warp-shuffle argmax that keeps the first maximum (one warp
-// per row; k3 reads its row 16 bytes a lane, one row a block while the rows
-// fit the card's first wave; k7's lanes stride the columns and take their
-// row's hidden values by shuffle); k4 is a direct copy, 16 bytes a thread; k2
+// flight at once), then each thread sums its units over F in order; k3
+// reduces with a warp-shuffle argmax that keeps the first maximum (one warp
+// per row, its row read 16 bytes a lane, one row a block while the rows fit
+// the card's first wave); k7 computes the one dot product its mask leaves, 8
+// lanes a row (probe_k7_kernel); k4 is a direct copy, 16 bytes a thread; k2
 // and k5 move a panel of 16 input columns over all input rows (up to 256)
 // through shared memory: the panel's loads are 16 bytes a thread along each
 // input row, and its output rows are one contiguous run, stored 16 bytes a
@@ -30,9 +30,9 @@
 //
 // Bound on the H100: bytes, and every body moves under 0.5 MB at the probe's
 // shapes (inputs read once, output written once: k1 68.9 KB, k2 16.4 KB, k3
-// 53.8 KB, k4 8.2 KB, k5 385 KB, k6 467 KB, k7 297 KB), 0.002-0.14 us at
-// 3.35 TB/s; the largest product, k7's 13.6 MFLOP, is 0.2 us at 67 TFLOP/s.
-// A launch costs microseconds, so they are launch-bound.
+// 53.8 KB, k4 8.2 KB, k5 385 KB, k6 467 KB; k7 297 KB, the h rows of its
+// in-range hands, hand, out and one wa column a distinct hand), 0.002-0.14
+// us at 3.35 TB/s.  A launch costs microseconds, so they are launch-bound.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -253,35 +253,59 @@ __global__ void __launch_bounds__(DOT_THREADS) probe_k6_kernel(const float* s, c
   dot_units(s, w, out, F, N);
 }
 
-// One warp per game: lane holds h[lane] and h[lane + 32]; each lane evaluates
-// the columns j = lane, lane + 32, ... of the head (weights in shared memory),
-// masks every column but hand[game], and the warp shuffles the first maximum.
-__global__ void probe_k7_kernel(const float* __restrict__ h, const float* __restrict__ wa,
-                                const int* __restrict__ hand, int* __restrict__ out, int N,
-                                int A) {
-  extern __shared__ float s_wa[];  // [DOT_K, A]
-  for (int i = threadIdx.x; i < DOT_K * A; i += blockDim.x) s_wa[i] = wa[i];
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int game = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (game >= N) return;
-  const float h_lo = h[(size_t)game * DOT_K + lane];
-  const float h_hi = h[(size_t)game * DOT_K + 32 + lane];
-  const int legal = hand[game];
-  float best = -FLT_MAX;
-  int idx = INT_MAX;
-  for (int j0 = 0; j0 < A; j0 += 32) {  // every lane takes part in the shuffles
-    const int j = j0 + lane;
-    float adv = 0.f;
+// k7 computes out[s, l] = first argmax_a where(a == hand, (h @ wa)[s, l, a],
+// -1e9): every column but hand[s, l] is -1e9, so the result depends on the
+// one dot product v = h[s, l] . wa[:, hand] alone (k7_rule below).  A group
+// of K7_LANES = 8 lanes a row: each lane loads 8 of the row's 64 h values
+// (two 16-byte loads, so a row is 256 contiguous bytes and a warp reads four
+// rows' 1 KB; scalar loads for an h off a 16-byte boundary), gathers its 8
+// weights wa[k, hand] straight from memory (26.6 KB at A=104, resident in L1
+// and L2) and does 8 FMAs; three xor shuffles sum the group, and its first
+// lane applies the rule and stores.  A row whose hand lies outside [0, A)
+// reads nothing of h or wa.
+//
+// k7_rule: argmax's answer on such a row (torch.argmax and jnp.argmax both
+// take the first maximum and treat NaN as the largest value):
+//   hand,  if 0 <= hand < A and (v > -1e9 or v is NaN);
+//   1,     if hand == 0, A > 1 and v < -1e9 (column 1's -1e9 is the maximum);
+//   0,     otherwise: hand outside [0, A), v == -1e9 (a tie goes to column 0),
+//          v < -1e9 with hand != 0, or A == 1.
+__device__ __forceinline__ int k7_rule(float v, int hand, int A) {
+  const float masked = -1e9f;
+  if (hand < 0 || hand >= A) return 0;
+  if (v > masked || v != v) return hand;
+  return v < masked && hand == 0 && A > 1 ? 1 : 0;
+}
+
+constexpr int K7_LANES = 8;                 // lanes a row
+constexpr int K7_PER_LANE = DOT_K / K7_LANES;  // h values a lane
+constexpr int K7_THREADS = 128;
+
+__global__ void __launch_bounds__(K7_THREADS)
+    probe_k7_kernel(const float* __restrict__ h, const float* __restrict__ wa, const int* __restrict__ hand,
+                    int* __restrict__ out, int N, int A) {
+  const int tid = blockIdx.x * K7_THREADS + threadIdx.x;
+  const int row = tid / K7_LANES, sub = tid % K7_LANES;
+  const bool live = row < N;  // every lane takes part in the shuffles
+  const int legal = live ? hand[row] : -1;
+  float v = 0.f;
+  if (legal >= 0 && legal < A) {
+    const float* hr = h + (size_t)row * DOT_K + K7_PER_LANE * sub;
+    float x[K7_PER_LANE];
+    if (aligned16(h)) {
+      const float4 a = *reinterpret_cast<const float4*>(hr), b = *reinterpret_cast<const float4*>(hr + 4);
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+    } else {
 #pragma unroll
-    for (int k = 0; k < DOT_K; ++k) {
-      const float hk = __shfl_sync(FULL, k < 32 ? h_lo : h_hi, k & 31);
-      if (j < A) adv = fmaf(hk, s_wa[k * A + j], adv);
+      for (int i = 0; i < K7_PER_LANE; ++i) x[i] = hr[i];
     }
-    if (j < A) first_max(j == legal ? adv : -1e9f, j, best, idx);
+    const float* wc = wa + (size_t)K7_PER_LANE * sub * A + legal;
+#pragma unroll
+    for (int i = 0; i < K7_PER_LANE; ++i) v = fmaf(x[i], wc[(size_t)i * A], v);
   }
-  idx = warp_first_argmax(best, idx);
-  if (lane == 0) out[game] = idx;
+#pragma unroll
+  for (int m = K7_LANES / 2; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+  if (live && sub == 0) out[row] = k7_rule(v, legal, A);
 }
 
 int blocks_for(long long n, int per_block) { return (int)((n + per_block - 1) / per_block); }
@@ -341,13 +365,8 @@ extern "C" int rl6_probe_k6(const void* s, const void* w, void* out, int F, int 
 
 extern "C" int rl6_probe_k7(const void* h, const void* wa, const void* hand, void* out, int N,
                             int A, void* stream) {
-  const size_t smem = sizeof(float) * DOT_K * A;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(probe_k7_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  probe_k7_kernel<<<blocks_for(N, 8), 256, smem, (cudaStream_t)stream>>>(
+  if (N <= 0) return 0;
+  probe_k7_kernel<<<blocks_for((long long)N * K7_LANES, K7_THREADS), K7_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)h, (const float*)wa, (const int*)hand, (int*)out, N, A);
   return (int)cudaGetLastError();
 }

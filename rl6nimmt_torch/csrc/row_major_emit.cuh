@@ -1,5 +1,5 @@
 // K4's row-major trajectory emitter for the play loop (act_play.cuh), shared
-// by K4 (act_rollout_kernel.cu) and K6 (act_ablate_kernel.cu).
+// by K4 (act_rollout_kernel.cu) and K6's mm (act_ablate_kernel.cu).
 //
 // Layout: obs [T+1, G, P, S] int8, actions and rewards [T, G, P] int32.  A
 // block's games are one contiguous run of nb*P*S observation bytes per turn
@@ -7,8 +7,7 @@
 // shared memory from the feature tile with the worker warps, then stores it
 // 16 bytes a store over the 16-byte-aligned chunks it covers; the ragged ends
 // of the run are stored a byte at a time.  Actions and rewards are written by each game's thread as
-// they are produced.  ActionRewardEmit is the same layout without the
-// observations (K6's env variant).
+// they are produced.
 #pragma once
 
 #include <cstdint>
@@ -18,7 +17,6 @@
 namespace rl6 {
 
 struct RowMajorEmit {
-  static constexpr bool kObs = true;
   int8_t* obs_out;
   int* act_out;
   int* rew_out;
@@ -62,11 +60,6 @@ struct RowMajorEmit {
   __device__ __forceinline__ void rewards(int t, int g, const int* rew) {
     for (int p = 0; p < P; ++p) rew_out[((size_t)t * G + g) * P + p] = rew[p];
   }
-};
-
-struct ActionRewardEmit : RowMajorEmit {
-  static constexpr bool kObs = false;
-  __host__ __device__ static size_t stage_bytes(int, int) { return 0; }
 };
 
 }  // namespace rl6

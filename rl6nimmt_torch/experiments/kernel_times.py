@@ -1,4 +1,4 @@
-"""Per-call and device times of K1 (both layouts), K2, K3 and K7's bodies beside their yardsticks.
+"""Per-call and device times of K1 (both layouts), K2, K3, K6 env/obs and K7's bodies beside their yardsticks.
 
     python rl6nimmt_torch/experiments/kernel_times.py [--root DIR] [KERNEL ...]
 
@@ -6,24 +6,26 @@ Times the kernels of the ``rl6nimmt_torch`` package found under ``--root``
 (by default the tree this file belongs to), so that one run on a card can time
 two trees, a parent and a change, with the same code, in turns.  KERNEL names
 the rows to time (``resolve_turn``, ``resolve_turn_t``, ``deal_games``,
-``play_random_games``, ``probe_k1`` ... ``probe_k7``; all of them by default),
+``play_random_games``, ``act_ablate_env``, ``act_ablate_obs``, ``probe_k1`` ...
+``probe_k7``; all of them by default),
 so a tree that lacks an entry is timed on the others.  Per kernel it prints one
 JSON line with
 
 * ``ms``: the time of one call as its caller sees it -- CUDA events around
   back-to-back calls, so the host's launch route is in it (the median of five
-  runs of 200 calls); for K1-K3 also ``host_us``, the host's microseconds a call;
+  runs of 200 calls); for K1-K3 and K6 also ``host_us``, the host's microseconds a call;
 * ``device_ms``: the kernel's own time per launch -- the ``torch.profiler``
   kernel events of the same calls whose name holds the kernel's (see
-  :func:`device_ms`); for K2 and K3 also ``device_ms_g16384``, the same at
-  4x the games (512 blocks), which barely moves if one game's chain sets the
-  time;
+  :func:`device_ms`); for K2, K3 and K6 env/obs also ``device_ms_g16384``,
+  the same at 4x the games (512 blocks), which barely moves if one game's
+  chain sets the time;
 * for K7, ``library_ms`` and ``library_device_ms``: the same two measures of
   its yardstick, the one PyTorch call that computes the same function (every
   device event of the yardstick's calls, per call).
 
 K1 runs at the main path's shapes (P=4, G=4096, the board after five random
-turns of seed 1), K2 and K3 at P=4 and G=4096, K7 at the probe script's.  Last
+turns of seed 1), K2, K3 and K6 at P=4 and G=4096 (K6 on the ablation's
+weights), K7 at the probe script's.  Last
 it prints the host's microseconds a call of the two ways to read the current
 CUDA stream's handle (the launch route uses the cheaper).  Needs a card; imports nothing of the
 package at module level, so ``chip_smoke.py`` shares its helpers.
@@ -46,9 +48,10 @@ G_WIDE = 16_384      # K2 and K3 also at 4x the games
 K1_TURN = 5          # the board K1 is timed on: after this many turns
 ITERS = 200
 REPS = 5             # per-call times: the median of this many runs of ITERS calls
-KERNELS = ("resolve_turn", "resolve_turn_t", "deal_games", "play_random_games",
-           *(f"probe_k{i}" for i in range(1, 8)))
-LAUNCH_ROUTE = ("resolve_turn", "resolve_turn_t", "deal_games", "play_random_games")  # rows with host_us
+KERNELS = ("resolve_turn", "resolve_turn_t", "deal_games", "play_random_games", "act_ablate_env",
+           "act_ablate_obs", *(f"probe_k{i}" for i in range(1, 8)))
+LAUNCH_ROUTE = ("resolve_turn", "resolve_turn_t", "deal_games", "play_random_games", "act_ablate_env",
+                "act_ablate_obs")  # rows with host_us
 
 
 def cuda_ms(fn, iters: int, reps: int = 1) -> float:
@@ -166,11 +169,13 @@ def _import_package(root: Path):
 
 
 def run(root: Path, only=()) -> list:
-    """Time K1-K3 and K7 of the package under ``root`` (the rows named in
-    ``only``, or all); print and return the rows."""
+    """Time K1-K3, K6 env/obs and K7 of the package under ``root`` (the rows
+    named in ``only``, or all); print and return the rows."""
     _import_package(root)
     from rl6nimmt_torch.engine import EnvConfig, deal, step
+    from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
     from rl6nimmt_torch.experiments import probe_ops as probe_exp
+    from rl6nimmt_torch.ops.act_ablate_kernel import make_act_ablate_kernel
     from rl6nimmt_torch.ops import step_kernel
     from rl6nimmt_torch.ops.game_kernel import deal_games, play_random_games, random_pick_words, random_picks
 
@@ -196,6 +201,11 @@ def run(root: Path, only=()) -> list:
                                    None)}
     wide = {"deal_games": lambda: deal_games(cfg, 5, G_WIDE, device=dev),
             "play_random_games": lambda: play_random_games(cfg, 6, G_WIDE, device=dev)}
+    aw = ablate.weights(ablate.config(), dev)
+    for v in ("env", "obs"):
+        play, play_wide = (make_act_ablate_kernel(ablate.config(), g, ablate.HID, v) for g in (G, G_WIDE))
+        timed[f"act_ablate_{v}"] = (lambda play=play: play(7, *aw), f"act_ablate_{v}_kernel", None)
+        wide[f"act_ablate_{v}"] = lambda play=play_wide: play(7, *aw)
     inp = probe_exp.probe_inputs(dev)
     library = yardsticks(inp)
     check_yardsticks(inp, library)

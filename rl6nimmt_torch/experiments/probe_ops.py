@@ -39,6 +39,41 @@ def probe_inputs(device="cuda") -> dict:
     return inp
 
 
+K7_EDGE_ROWS = 1_027    # rows of k7_edge_inputs: eight blocks of 128 and a ragged three
+
+
+def k7_edge_inputs(A: int, device="cuda", misaligned: bool = False, seed: int = 5):
+    """``(h [1, N, 64], wa [64, A], hand [1, N])`` that pin k7's rule at its edges.
+
+    Random rows (``default_rng(seed)``) plus rows whose hand lies outside
+    ``[0, A)`` (-1, ``A``, ``A + 7``) and rows whose masked value ``v = h .
+    wa[:, hand]`` is exactly -1e9, the floats just below and above it, and NaN,
+    made through the hand's column of ``wa``: zero but for its first weight,
+    with ``h``'s first entry 1, so every summation order gives the same ``v``.
+    At ``A > 1`` column 0 holds -2e9 (a hand of 0 whose ``v`` is below -1e9).
+    ``misaligned`` puts ``h`` 4 bytes past a 16-byte boundary."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    N = K7_EDGE_ROWS
+    h = rng.normal(size=(N, ops.DOT_K)).astype(np.float32)
+    wa = rng.normal(size=(ops.DOT_K, A)).astype(np.float32)
+    hand = rng.integers(0, A, size=N).astype(np.int32)
+    hand[:3] = (-1, A, A + 7)
+    at = np.float32(-1e9)
+    values = {0: np.float32(-2e9), 1: at, 2: np.nextafter(at, np.float32(-np.inf)),
+              3: np.nextafter(at, np.float32(0)), 4: np.float32(np.nan)}
+    for row, (col, v) in enumerate((c, v) for c, v in values.items() if c < A):
+        wa[:, col] = 0.0
+        wa[0, col] = v
+        hand[3 + row] = col
+        h[3 + row, 0] = 1.0
+    flat = torch.empty(N * ops.DOT_K + 4, dtype=torch.float32, device=dev)
+    start = 1 if misaligned else 0
+    h_t = flat[start:start + N * ops.DOT_K].view(1, N, ops.DOT_K)
+    h_t.copy_(torch.as_tensor(h, device=dev)[None])
+    return h_t, torch.as_tensor(wa, device=dev), torch.as_tensor(hand, device=dev)[None]
+
+
 def probes(inp: dict):
     """``(key, label, kernel, twin, args, exact)`` for k1-k7."""
     return [

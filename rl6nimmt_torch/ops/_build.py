@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu", "act_insert_kernel.cu",
            "act_ablate_kernel.cu", "probe_ops.cu")
-HEADERS = ("game.cuh", "act_play.cuh", "row_major_emit.cuh")
+HEADERS = ("game.cuh", "random_play.cuh", "act_play.cuh", "row_major_emit.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 

@@ -15,8 +15,8 @@ On CUDA tensors each wrapper launches its kernel through the library's launch
 route (``_build.Launcher``) and counts it in ``_build.LAUNCHES["probe_k<i>"]``;
 on CPU tensors it runs the ``*_plain`` twin,
 which spells out the body's arithmetic (an ordered sum over ``F``, an index
-gather, a first-maximum scan) rather than calling the one PyTorch op that
-computes the same function.
+gather, a first-maximum scan; for k7 its formula's masked ``argmax``) rather
+than calling the one PyTorch op that computes the same function.
 """
 
 from __future__ import annotations
@@ -173,9 +173,11 @@ def argmax_rows(x):
 
 
 def dot_mask_argmax_plain(h, wa, hand):
+    """The formula itself: ``argmax`` takes the first maximum and counts NaN as
+    the largest value, as ``jnp.argmax`` does."""
     adv = h @ wa
     cols = torch.arange(wa.shape[1], device=h.device)
-    return _first_argmax(torch.where(cols == hand[..., None], adv, MASKED)).to(torch.int32)
+    return torch.argmax(torch.where(cols == hand[..., None], adv, MASKED), dim=-1).to(torch.int32)
 
 
 def dot_mask_argmax(h, wa, hand):

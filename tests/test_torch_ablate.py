@@ -17,6 +17,7 @@ import torch
 
 from rl6nimmt_tpu.engine import EnvConfig as JaxConfig
 from rl6nimmt_tpu.engine import env as jenv
+from rl6nimmt_torch.engine import EnvConfig
 from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
 from rl6nimmt_torch.experiments import probe_ops as probe_exp
 from rl6nimmt_torch.ops import probe_ops
@@ -40,17 +41,30 @@ MASK32 = 0xFFFFFFFF
 NEAR_TIES = {("mm", 42): 1}
 
 
+# (players, EnvConfig keywords): the ablation's configuration, then shapes that run
+# the runtime-sized instances of K6 env and obs (and, without summaries, the flagship
+# instance at another observation length).
+SHAPES = {"default": (4, {}), "six_seats": (6, {}), "no_summaries": (4, dict(include_summaries=False)),
+          "deck_127": (12, dict(num_cards=127))}
+
+
+def _config(shape: str = "default") -> EnvConfig:
+    players, kw = SHAPES[shape]
+    return EnvConfig(players, **kw)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_engine():
-    jcfg = JaxConfig(4)
+def _jax_engine(shape: str = "default"):
+    players, kw = SHAPES[shape]
+    jcfg = JaxConfig(players, **kw)
     return (jax.jit(jax.vmap(functools.partial(jenv.init_from_deck, jcfg))),
             jax.jit(jax.vmap(functools.partial(jenv.step, jcfg))),
             jax.jit(jax.vmap(functools.partial(jenv.observe, jcfg))))
 
 
 @functools.lru_cache(maxsize=None)
-def _weights():
-    return ablate.weights(ablate.config(), "cpu")
+def _weights(shape: str = "default"):
+    return ablate.weights(_config(shape), "cpu")
 
 
 def _tol(adv: np.ndarray) -> np.ndarray:
@@ -64,16 +78,17 @@ def _top2_gap(x: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_games(variant: str, seed: int):
-    """``variant`` played on the JAX engine from the port's decks and words:
-    ``(obs int8 [T+1,G,P,S], actions [T,G,P], rewards [T,G,P], advs, near_ties)``.
-    ``advs`` are the per-turn ``jnp`` heads (``mm``/``full``); ``near_ties``
-    counts decisions whose top-2 gap is within the tolerance."""
-    cfg = ablate.config()
-    init_j, step_j, obs_j = _jax_engine()
+def _jax_games(variant: str, seed: int, shape: str = "default"):
+    """``variant`` played on the JAX engine from the port's decks and words, in
+    the configuration ``SHAPES[shape]``: ``(obs int8 [T+1,G,P,S], actions
+    [T,G,P], rewards [T,G,P], advs, near_ties)``.  ``advs`` are the per-turn
+    ``jnp`` heads (``mm``/``full``); ``near_ties`` counts decisions whose top-2
+    gap is within the tolerance."""
+    cfg = _config(shape)
+    init_j, step_j, obs_j = _jax_engine(shape)
     decks = deal_decks_plain(cfg, seed, G, "cpu").numpy()
     words = random_pick_words(cfg, seed, G, "cpu").numpy()
-    w1, b1, wa, ba = (jnp.asarray(x.numpy()) for x in _weights())
+    w1, b1, wa, ba = (jnp.asarray(x.numpy()) for x in _weights(shape))
     state = init_j(jnp.asarray(decks))
     obs_all, actions, rewards, advs = [], [], [], []
     near_ties = 0
@@ -125,6 +140,25 @@ def test_obs_twin_matches_jax_engine():
     np.testing.assert_array_equal(obs.numpy(), j_obs)
     np.testing.assert_array_equal(actions.numpy(), j_actions)
     np.testing.assert_array_equal(rewards.numpy(), j_rewards)
+
+
+@pytest.mark.parametrize("shape", ["six_seats", "no_summaries", "deck_127"])
+@pytest.mark.parametrize("variant", ["env", "obs"])
+def test_random_twins_match_jax_engine_at_other_shapes(variant, shape):
+    """env and obs, whose kernels play K3's games, at shapes of their
+    runtime-sized instance (six seats; twelve on the 127-card deck) and without
+    summaries (the flagship instance at S=35)."""
+    cfg = _config(shape)
+    obs, actions, rewards = act_ablate_plain(cfg, variant, SEED, G, *_weights(shape))
+    j_obs, j_actions, j_rewards, _, _ = _jax_games(variant, SEED, shape)
+    if variant == "env":
+        assert obs is None
+    else:
+        assert obs.dtype == torch.int8 and obs.shape == (cfg.max_turns + 1, G, cfg.num_players, cfg.state_length)
+        np.testing.assert_array_equal(obs.numpy(), j_obs)
+    np.testing.assert_array_equal(actions.numpy(), j_actions)
+    np.testing.assert_array_equal(rewards.numpy(), j_rewards)
+    np.testing.assert_array_equal(rewards.sum(0).numpy(), play_random_games_plain(cfg, SEED, G, "cpu")[0].numpy())
 
 
 def test_mm_twin_matches_jax_head_and_games():
@@ -228,6 +262,24 @@ def test_probe_twin_matches_jnp(key):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL * float(np.abs(want).max()))
     assert torch.equal(kernel(*args), got)         # the wrapper takes the twin on the CPU
+
+
+@pytest.mark.parametrize("A", [1, 103, 200])
+def test_k7_twin_matches_jnp_at_its_edges(A):
+    """The rule the k7 kernel implements, pinned on the CPU: the twin equals
+    ``jnp.argmax(jnp.where(iota == hand, h @ wa, -1e9))`` on rows whose hand is
+    out of range or whose masked value is -1e9, just below or above it, or NaN."""
+    h, wa, hand = probe_exp.k7_edge_inputs(A, "cpu")
+    got = probe_ops.dot_mask_argmax_plain(h, wa, hand)
+    adv = jnp.einsum("slh,ha->sla", jnp.asarray(h.numpy()), jnp.asarray(wa.numpy()))
+    iota = jax.lax.broadcasted_iota(jnp.int32, adv.shape, 2)
+    want = jnp.argmax(jnp.where(iota == jnp.asarray(hand.numpy())[..., None], adv, -1e9), axis=2)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # hands -1, A and A + 7 give 0; then hand 0 at -2e9 (column 1 wins), and at
+    # A > 4 the hands 1-4 at -1e9 (a tie: column 0), below it, above it and NaN.
+    edges = [0, 0, 0, 1 if A > 1 else 0] + ([0, 0, 3, 4] if A > 4 else [])
+    assert got[0, :len(edges)].tolist() == edges
 
 
 def test_probe_entry_point_on_cpu(capsys):

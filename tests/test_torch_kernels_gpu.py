@@ -281,10 +281,17 @@ def test_kernel_insert_cycle_runs_through_k5():
 
 # (variant, G, P, hidden, shape): the ablation's own configuration, then mm's
 # A-wide head at width 256 with six seats, on the 127-card deck with twelve, and at
-# the shape that needs the most shared memory.
+# the shape that needs the most shared memory; then env and obs on their
+# runtime-sized instance (six seats at G ragged against the 32 games of a block,
+# sixteen at the largest stage, twelve on the 127-card deck, six without
+# summaries) and on the flagship one without summaries (S = 35).
 K6_CASES = [("env", 4096, 4, 64, "default"), ("obs", 4096, 4, 64, "default"), ("mm", 4096, 4, 64, "default"),
             ("obs", 333, 4, 64, "default"), ("mm", 1000, 6, 256, "default"), ("mm", 129, 12, 256, "deck_127"),
-            ("mm", 129, 16, 256, "most_smem")]
+            ("mm", 129, 16, 256, "most_smem")] + [
+    (v, G, P, 64, shape) for v in ("env", "obs")
+    for G, P, shape in [(1, 6, "default"), (31, 6, "default"), (33, 6, "default"), (333, 6, "default"),
+                        (129, 16, "most_smem"), (129, 12, "deck_127"), (333, 6, "no_summaries"),
+                        (33, 4, "no_summaries")]]
 
 
 @pytest.mark.parametrize("variant,G,num_players,hidden,shape", K6_CASES)
@@ -300,11 +307,13 @@ def test_k6_ablation_matches_twin(variant, G, num_players, hidden, shape):
         assert agree == 1.0 and games == G
 
 
-def test_k6_env_plays_k3s_games():
+@pytest.mark.parametrize("num_players,G", [(4, 4096), (6, 333)])
+def test_k6_env_plays_k3s_games(num_players, G):
+    """At the flagship shape and on the runtime-sized instances of both kernels."""
     dev = _cuda()
-    cfg = ablate.config()
-    _, actions, rewards = make_act_ablate_kernel(cfg, 4096, 64, "env")(29, *ablate.weights(cfg, dev))
-    assert torch.equal(rewards.sum(dim=0), play_random_games(cfg, 29, 4096, device=dev)[0])
+    cfg = EnvConfig(num_players)
+    _, actions, rewards = make_act_ablate_kernel(cfg, G, 64, "env")(29, *ablate.weights(cfg, dev))
+    assert torch.equal(rewards.sum(dim=0), play_random_games(cfg, 29, G, device=dev)[0])
 
 
 def test_k6_ablation_entry_point_counts_its_launches():
@@ -355,6 +364,23 @@ def test_k7_probe_matches_twin(key):
     ok, diff = compare(kernel(*args), twin(*args), exact)
     assert ok, f"{key} {label}: max|diff| {diff}"
     assert _build.LAUNCHES[f"probe_{key}"] == 1
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("A", [1, 103, 200])
+def test_k7_masked_argmax_edges_match_twin(A, misaligned):
+    """k7 at 1,027 rows (a ragged block) against its literal twin, on hands out
+    of range and masked values at, below and above -1e9 and NaN."""
+    from rl6nimmt_torch.experiments.probe_ops import k7_edge_inputs
+    from rl6nimmt_torch.ops.probe_ops import dot_mask_argmax, dot_mask_argmax_plain
+
+    dev = _cuda()
+    h, wa, hand = k7_edge_inputs(A, dev, misaligned)
+    assert (h.data_ptr() % 16 != 0) == misaligned
+    _build.reset_launches()
+    got = dot_mask_argmax(h, wa, hand)
+    assert _build.LAUNCHES["probe_k7"] == 1
+    assert torch.equal(got, dot_mask_argmax_plain(h, wa, hand))
 
 
 # ------------------------------------------------------------ the search path
