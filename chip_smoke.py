@@ -71,12 +71,28 @@ process per source), then:
    and K2 against their twins at the learners' shapes, four host agents
    (REINFORCE, masked REINFORCE, ACER past its warmup, PUCT) learning over
    whole games of the host loop on the card, and last one traced step of each
-   learner.
+   learner;
+9. drives the tournament (``tournament/tournament.py`` through
+   ``runtime/device_tournament.py``) on the published population of
+   ``experiments/simple_tournament.py`` (Random, Noisy-D3QN-PER-10step at a
+   100,000 buffer, ACER minibatch 10, MCS and PUCT at mc_max 200, all in
+   ``train()`` mode, ``Tournament(2, 4)``): with every counter at 0 just before
+   it, 2 ``play_game`` and one ``play_block(4)`` on the host path, each game's K2
+   and K1 launches asserted (one K2 a game, one K1 a game turn and a playout
+   turn), then 3 ``play_device_block(32, bucket=32)`` calls with ``evolve`` before
+   the last, each signature group's launches asserted (K2 once, K1 once a turn
+   plus each search call's playout turns), ELO zero-sum in every game, every
+   learner that took an Adam step moved, games/s and the ``block.learn`` share
+   of each call; then 8 games at P=4 seating every family on the card and on the
+   CPU on one noise (``runtime/tournament_check.py``), K1 and K2 against their
+   twins at every group's shapes, and last one more block of two-seat
+   lineups traced for its kernels (device-busy share, launches).
 
-Prints the ``search`` and ``learners`` JSON lines, one JSON line of kernels
+Prints the ``search``, ``learners`` and ``tournament`` JSON lines, one JSON line of kernels
 (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
-K2's rows their launches on the search path and on the learners' path), the
+K2's rows their launches on the search, the learners' and the tournament's
+path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -133,6 +149,14 @@ LEARNER_STEPS = 3          # steps or cycles per learner for the rates and the c
 LEARNER_CHECK_GAMES = 64   # the card-against-CPU run
 HOST_GAMES = 4             # host-loop games (ACER's warmup needs 3 flushes)
 SPANS = ("cycle.", "reinforce.", "acer.")
+
+# Phase 9, the tournament: the published experiment's population
+# (experiments/simple_tournament.py:113-125) in Tournament(2, 4); the host
+# path's games, then device blocks of RESULTS.md's `--device-blocks --block 32`.
+HOST_TOURNAMENT_GAMES = 2  # play_game() calls
+HOST_TOURNAMENT_BLOCK = 4  # one play_block() of this many games
+TOURNAMENT_BLOCKS = 3      # play_device_block() calls; evolve before the last
+TOURNAMENT_BLOCK = 32
 
 # Peak rates of one H100 SXM (NVIDIA's published figures): HBM
 # bytes/s and float32 operations/s outside the tensor cores.  Integer work is
@@ -192,6 +216,35 @@ def profile_call(fn, label):
             "phase_host_ms": spans,
             "top_kernels": [{"kernel": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
                              "calls": e.count} for e in top]}
+
+
+def trace_kernels(fn, label):
+    """One call traced for its device work only (CUDA activity): wall time,
+    device busy time (kernel and copy events), idle share, launches and the
+    kernels with the most device time, summed from the raw trace events.  A
+    tournament block launches ~10^6 kernels; building the profiler's parsed
+    event tree for that many takes minutes, reading the raw events seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, calls = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+    if not by_name:
+        raise AssertionError(f"the trace of {label} holds no device event")
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    return {"profile": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": sum(calls for _, calls in by_name.values()),
+            "top_kernels": [{"kernel": k[:70], "device_ms": ms, "calls": calls} for k, (ms, calls) in top]}
 
 
 def bound_ms(nbytes, ops):
@@ -455,6 +508,237 @@ def learner_checks(dev):
     return {"card_vs_cpu": {"exact": len(check["exact"]), "f32": len(check["f32"]), "worst": worst},
             "host_agents": {"games": HOST_GAMES, "seconds": sec, "adam_steps":
                             {k: a.opt_state.count for k, a in agents.items()}}}, twin_errs
+
+
+def host_search_turns(agent, n):
+    """K1 launches of one host search call at ``n`` cards (``mcs.py`` ``_mcts_many``):
+    rounds of ``batch_playouts`` (MCS: all ``n_mc`` at once) of ``n`` playout
+    turns; a single card is played without a search."""
+    if n == 1:
+        return 0
+    n_mc = min(agent.mc_max, agent.mc_per_card * math.factorial(n))
+    return -(-n_mc // (agent.batch_playouts or n_mc)) * n
+
+
+def block_launches(session, cap):
+    """A device block's launches and playout widths, rebuilt from its lineups:
+    K2 once; K1 once a game turn and, every turn, ceil(n_mc / K) rounds of n
+    playout turns for each search call -- one for the seats without a net
+    (random, MCS) and one for each PUCT agent, seats x K lanes wide.  K is the
+    session's, or, with no PUCT seat, the budgets' pow2 ceiling up to ``cap``
+    lanes a seat."""
+    from rl6nimmt_torch.agents import DrunkHamster, MCSAgent, PUCTAgent
+
+    seats = [a for lineup in session.lineups for a in lineup]
+    if any(isinstance(a, PUCTAgent) for a in seats):
+        K = session.batch
+    else:
+        ceiling = max([session.batch] + [a.mc_max for a in seats if isinstance(a, MCSAgent)])
+        K = min(1 << (ceiling - 1).bit_length(), cap)
+    calls = {}
+    for a in seats:
+        if isinstance(a, (DrunkHamster, MCSAgent, PUCTAgent)):
+            calls.setdefault(id(a) if isinstance(a, PUCTAgent) else None, []).append(a)
+    k1 = session.cfg.max_turns
+    for n in range(1, session.cfg.hand_size + 1):
+        for group in calls.values():
+            n_mc = max(min(a.mc_max, a.mc_per_card * math.factorial(n)) if hasattr(a, "mc_max") else 0
+                       for a in group)
+            k1 += -(-n_mc // K) * n
+    return {"deal_games": 1, "resolve_turn": k1}, {len(group) * K for group in calls.values()}
+
+
+def tournament_phase(dev, card):
+    """Phase 9, the tournament: the published population on the host path
+    (play_game, play_block) and the device path (play_device_block, evolve
+    before the last block), each launch count asserted; ELO zero-sum; the
+    learners that learned moved; then the card against the CPU on one noise,
+    K1/K2 against their twins at the blocks' shapes, and last one traced block.
+    Returns the ``tournament`` line, the path's launches and the twin errors."""
+    import numpy as np
+
+    from rl6nimmt_torch.agents import MCSAgent, PUCTAgent
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments.simple_tournament import population
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.runtime import device_tournament as dtm
+    from rl6nimmt_torch.runtime.tournament_check import tournament_card_against_cpu
+    from rl6nimmt_torch.tournament import Tournament
+
+    np.random.seed(90)
+    t = Tournament(min_players=2, max_players=4, device=dev)
+    for name, agent in population(91, device=dev).items():
+        agent.train()
+        t.add_player(name, agent)
+    games, sessions = [], []
+    score_game, dispatch = t.score_game, dtm.DeviceBlockSession.dispatch
+
+    def scored(names, scores):
+        before = sum(t.players[n].elos[-1] for n in names)
+        score_game(names, scores)
+        games.append((list(names), sum(t.players[n].elos[-1] for n in names) - before))
+
+    def dispatched(self):
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        out = dispatch(self)
+        torch.cuda.synchronize()
+        sessions.append((self, {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}))
+        return out
+
+    t.score_game = scored
+    dtm.DeviceBlockSession.dispatch = dispatched
+    searchers = lambda names: [t.players[n].agent for n in names
+                               if isinstance(t.players[n].agent, (MCSAgent, PUCTAgent))]
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        # ---- the tournament's path: every counter starts at 0 here ----
+        host = {}
+        t0 = time.perf_counter()
+        for _ in range(HOST_TOURNAMENT_GAMES):
+            before = dict(_build.LAUNCHES)
+            t.play_game()
+            got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+            names = games[-1][0]
+            want = {"deal_games": 1, "resolve_turn": 10 + sum(host_search_turns(a, n) for a in searchers(names)
+                                                              for n in range(1, 11))}
+            if got != want:
+                raise AssertionError(f"play_game {names} launched {got}, expected {want}")
+        before, first = dict(_build.LAUNCHES), len(games)
+        t.play_block(HOST_TOURNAMENT_BLOCK)
+        got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        block_games = [names for names, _ in games[first:]]
+        counts = {}   # (agent, players): the block's search calls group games by player count
+        for names in block_games:
+            for a in searchers(names):
+                counts[(id(a), len(names))] = a
+        want = {"deal_games": HOST_TOURNAMENT_BLOCK,
+                "resolve_turn": 10 * HOST_TOURNAMENT_BLOCK + sum(host_search_turns(a, n) for a in counts.values()
+                                                                 for n in range(1, 11))}
+        if got != want:
+            raise AssertionError(f"play_block {block_games} launched {got}, expected {want}")
+        torch.cuda.synchronize()
+        host = {"games": HOST_TOURNAMENT_GAMES + HOST_TOURNAMENT_BLOCK, "seconds": time.perf_counter() - t0,
+                "launches": {k: v for k, v in _build.LAUNCHES.items() if v}}
+        log(f"[9] host path: {HOST_TOURNAMENT_GAMES} play_game + play_block({HOST_TOURNAMENT_BLOCK}) in "
+            f"{host['seconds']:.1f} s, launches {host['launches']} (each game's asserted)")
+
+        blocks, shapes = [], {}
+        for b in range(TOURNAMENT_BLOCKS):
+            if b == TOURNAMENT_BLOCKS - 1:
+                t.evolve(max_players=6, max_per_descendant=2, copies=(2,))
+            learners = {n: (r.agent.opt_state.count, [x.clone() for x in tree_leaves(r.agent.parameters())])
+                        for n, r in t.players.items() if r.active and r.agent.parameters() is not None
+                        and r.agent.opt_state is not None}
+            first_session = len(sessions)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.play_device_block(TOURNAMENT_BLOCK, bucket=TOURNAMENT_BLOCK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            groups = []
+            for session, got in sessions[first_session:]:
+                want, lanes = block_launches(session, dtm.SINGLE_ROUND_CAP)
+                shapes.setdefault(session.cfg.num_players, set()).update(lanes | {len(session.lineups)})
+                if got != want:
+                    raise AssertionError(f"block {b}: a group of {len(session.lineups)} games at "
+                                         f"P={session.cfg.num_players} launched {got}, expected {want}")
+                groups.append({"games": len(session.lineups), "players": session.cfg.num_players,
+                               "launches": got, **session.timings})
+            if sum(g["games"] for g in groups) != TOURNAMENT_BLOCK:
+                raise AssertionError(f"block {b}: its device groups played {[g['games'] for g in groups]} games")
+            moved = {}
+            for n, (count, start) in learners.items():
+                agent = t.players[n].agent
+                if agent.opt_state.count > count:
+                    moved[n] = any(not torch.equal(x, y) for x, y in zip(tree_leaves(agent.parameters()), start))
+            if not all(moved.values()):
+                raise AssertionError(f"block {b}: learners that learned but did not move: {moved}")
+            learn_s = sum(g["replay_s"] for g in groups)
+            blocks.append({"wall_s": wall, "games_per_s": TOURNAMENT_BLOCK / wall, "learn_s": learn_s,
+                           "learn_share": learn_s / wall, "play_s": sum(g["device_s"] for g in groups),
+                           "groups": groups, "learned": sorted(moved)})
+            log(f"[9] device block {b} ({TOURNAMENT_BLOCK} games, {len(groups)} groups"
+                f"{', after evolve' if b == TOURNAMENT_BLOCKS - 1 else ''}): {wall:.2f} s, "
+                f"{TOURNAMENT_BLOCK / wall:.2f} games/s, block.learn {learn_s:.2f} s; learned {sorted(moved)}; "
+                f"launches a group {[g['launches'] for g in groups]}")
+        torch.cuda.synchronize()
+        path_launches = dict(_build.LAUNCHES)
+        # ---- end of the tournament's path ----
+    finally:
+        dtm.DeviceBlockSession.dispatch = dispatch
+        del t.score_game
+    worst_elo = max(abs(d) for _, d in games)
+    if worst_elo > 1e-9:
+        raise AssertionError(f"ELO not zero-sum: {worst_elo}")
+    learned = set().union(*(b["learned"] for b in blocks))
+    if not any(n.startswith("D3QN") for n in learned) or not any(n.startswith("Alpha0.5") for n in learned):
+        raise AssertionError(f"the D3QN and Alpha0.5 lineages must learn in the device blocks: {sorted(learned)}")
+    log(f"[9] {len(games)} games scored, ELO zero-sum within {worst_elo:.3g}; tournament path launches "
+        f"{ {k: v for k, v in path_launches.items() if v} }")
+    log(str(t))
+
+    t0 = time.perf_counter()
+    check = tournament_card_against_cpu()
+    if not check["equal"]:
+        raise AssertionError(f"the tournament block on the card differs from the CPU: "
+                             f"{ {k: v for k, v in check['exact'].items() if not v} } "
+                             f"{ {k: v for k, v in check['f32'].items() if v > 1.0} }")
+    worst = max(check["f32"].items(), key=lambda kv: kv[1])
+    log(f"[9] card == CPU on one noise ({time.perf_counter() - t0:.1f} s; 8 games at P=4 seating every family): "
+        f"{sorted(check['exact'])} equal; {worst[0]} within {worst[1]:.3f} of the float32 tolerance")
+    cfg, seed, g = check["deal"]
+    from rl6nimmt_torch.ops.game_kernel import deal_games, deal_games_plain
+    from rl6nimmt_torch.ops.step_kernel import resolve_turn, resolve_turn_plain
+
+    errs = {"deal_games": 0.0, "resolve_turn": 0.0}
+    out_k, out_p = deal_games(cfg, seed, g, device=dev), deal_games_plain(cfg, seed, g, "cpu")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(out_k, out_p)):
+        raise AssertionError("K2 differs from its twin at the check block's deal")
+    errs["deal_games"] = max_abs_err((a.cpu(), b) for a, b in zip(out_k, out_p))
+    for board, row_len, acts in check["k1_inputs"]:
+        out_k = resolve_turn(cfg, board.to(dev), row_len.to(dev), acts.to(dev))
+        out_p = resolve_turn_plain(cfg, board, row_len, acts)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(out_k, out_p)):
+            raise AssertionError("K1 differs from its twin on the check block's turns")
+        errs["resolve_turn"] = max(errs["resolve_turn"], max_abs_err((a.cpu(), b) for a, b in zip(out_k, out_p)))
+    shapes.setdefault(cfg.num_players, set()).update(check["lanes"])
+    shapes = {p: sorted(sizes) for p, sizes in sorted(shapes.items())}
+    for players, sizes in shapes.items():
+        for name, err in k1_k2_against_twins(EnvConfig(players), sizes, 92, dev).items():
+            errs[name] = max(errs[name], err)
+    log(f"[9] K1 and K2 bit-exact vs twins on the check block's deal and turns, and at every group's games "
+        f"and playout lanes {shapes} (players: sizes)")
+
+    # Last: one more block, traced (it plays on, so it is not part of the counted
+    # path); its groups' host-clock split gives the block.play/block.learn spans.
+    # Two-seat lineups: a mixed block's ~10^6 launches cost ~50 s of profiler
+    # post-processing, two seats' block about a third of them.
+    traced_sessions = []
+
+    def seen(self):
+        traced_sessions.append(self)
+        return dispatch(self)
+
+    dtm.DeviceBlockSession.dispatch = seen
+    try:
+        traced = trace_kernels(lambda: t.play_device_block(TOURNAMENT_BLOCK, num_players=2, bucket=TOURNAMENT_BLOCK),
+                               f"tournament_device_block_{TOURNAMENT_BLOCK}_two_seats")
+    finally:
+        dtm.DeviceBlockSession.dispatch = dispatch
+    traced["phase_host_ms"] = {"block.play": 1e3 * sum(s.timings["device_s"] for s in traced_sessions),
+                               "block.learn": 1e3 * sum(s.timings["replay_s"] for s in traced_sessions)}
+    log(json.dumps(traced))
+    line = {"players": sorted(t.players), "block_shapes": shapes,
+            "host": host, "device_blocks": blocks, "elo_zero_sum_max": worst_elo,
+            "games_per_s": [b["games_per_s"] for b in blocks], "learn_share": [b["learn_share"] for b in blocks],
+            "card_vs_cpu": {"exact": len(check["exact"]), "f32": check["f32"]},
+            "profile": {k: traced[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "kernel_launches",
+                                               "phase_host_ms")},
+            "card": card}
+    return line, path_launches, errs
 
 
 def main():
@@ -916,6 +1200,19 @@ def main():
         learner_line[f"profile_{name}"] = {k: traced[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
                                                                    "kernel_launches", "phase_host_ms")}
     print(json.dumps({"learners": learner_line, "card": card}), flush=True)
+
+    # ------------------------------------------------------------ phase 9
+    t0 = time.perf_counter()
+    tournament_line, tournament_launches, tournament_errs = tournament_phase(dev, card)
+    tournament_line["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["tournament_path_launches"] = tournament_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], tournament_errs[row["name"]])
+    missing = [k for k in ("resolve_turn", "deal_games") if not tournament_launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the tournament path: {missing}")
+    print(json.dumps({"tournament": tournament_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

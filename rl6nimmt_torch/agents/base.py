@@ -28,7 +28,6 @@ import torch
 
 from ..engine.state import EnvConfig
 from ..utils.device import resolve_device
-from .dqn import Adam
 
 DEFAULT_ENV_CONFIG = EnvConfig(num_players=4)
 
@@ -105,6 +104,8 @@ class Agent:
 
     def train(self, mode: bool = True) -> None:
         """Enter/leave training mode; (re)creates Adam like the reference."""
+        from .dqn import Adam
+
         self.training = mode
         if mode and self.parameters() is not None:
             betas = self.optim_kwargs.get("betas", (0.9, 0.999))

@@ -1,7 +1,8 @@
 """Batched 6 nimmt! engine (port of ``rl6nimmt_tpu.engine``)."""
 
-from .cards import POINTS_104, build_points_table, card_points
+from .cards import POINTS_104, build_points_table, card_points, format_card
 from .env import (
+    InvalidMoveException,
     card_points_formula,
     deal,
     init_from_deck,
@@ -17,11 +18,13 @@ from .state import EnvConfig, EnvState
 __all__ = [
     "EnvConfig",
     "EnvState",
+    "InvalidMoveException",
     "POINTS_104",
     "build_points_table",
     "card_points",
     "card_points_formula",
     "deal",
+    "format_card",
     "init_from_deck",
     "is_done",
     "legal_mask",

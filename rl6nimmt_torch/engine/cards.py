@@ -11,6 +11,9 @@ import numpy as np
 
 NUM_CARDS_DEFAULT = 104
 
+# Sigils the renderer marks card point values with (reference env.py:241-244).
+VALUE_SIGILS = {1: " ", 2: ".", 3: ":", 5: "+", 7: "#"}
+
 
 def card_points(card_id: int) -> int:
     """Point value of a single 0-indexed card id (face value ``card_id + 1``)."""
@@ -32,3 +35,8 @@ def build_points_table(num_cards: int = NUM_CARDS_DEFAULT) -> np.ndarray:
 
 
 POINTS_104 = build_points_table(NUM_CARDS_DEFAULT)
+
+
+def format_card(card_id: int) -> str:
+    """Render a card as ``'<face><sigil>'`` right-aligned (reference env.py:241-244)."""
+    return f"{card_id + 1:>3d}{VALUE_SIGILS[card_points(card_id)]}"

@@ -21,6 +21,10 @@ import torch
 from .state import EnvConfig, EnvState
 
 
+class InvalidMoveException(Exception):
+    """Host-side error for illegal moves (reference env.py:9-10)."""
+
+
 def card_points_formula(card: torch.Tensor) -> torch.Tensor:
     """Card point values computed arithmetically; negative ids give 0."""
     face = card + 1

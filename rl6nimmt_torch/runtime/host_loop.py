@@ -6,7 +6,7 @@ protocol (play.py:29-72): every agent gets its own observation and legal-card
 list, and ``learn`` receives the *previous* turn's reward as ``reward`` and
 the fresh one as ``next_reward``, with the agent's ``forward`` extras
 (``step_record``, ``log_probs``, ...) as keyword arguments.  The tournament's
-game session, with its rendering and bookkeeping, is ROADMAP queue 1 item 8.
+game session, with its rendering and bookkeeping, is :mod:`.session`.
 """
 
 from __future__ import annotations

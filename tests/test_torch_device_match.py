@@ -254,3 +254,16 @@ def test_search_check_pieces_on_the_cpu():
     spec = MLPSpec(cfg.state_length + 1)
     logits = action_in_input_logits(spec, exact_prior(spec, device="cpu"), obs, hand)
     assert torch.equal(logits, 1.5 + (-1.0 + 2.0 * hand.float() / 103))
+
+
+def test_device_match_bench_runs_the_host_driver_beside(capsys):
+    """The bench's host-driver comparison: a GameSession of the host agents
+    with device-root decisions, timed beside the device matches."""
+    import json
+
+    from rl6nimmt_torch.experiments import device_match_bench
+
+    device_match_bench.main(["--games", "2", "--per-call", "2", "--mc-max", "4", "--host-games", "1",
+                             "--roster", "puct_uniform", "random", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["games"] == 2 and out["s_per_match_host_driver"] > 0 and out["speedup_vs_host_driver"] > 0

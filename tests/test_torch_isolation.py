@@ -48,7 +48,12 @@ def test_module_list_covers_the_ported_slice():
               "experiments.device_match_bench", "runtime.search_check",
               # REINFORCE and ACER
               "utils.returns", "agents.acer", "buffers.sequence", "buffers.host", "buffers.sumtree_native",
-              "runtime.host_loop", "runtime.learner_check", "experiments.trainable_bench"):
+              "runtime.host_loop", "runtime.learner_check", "experiments.trainable_bench",
+              # the tournament
+              "agents.random_agent", "agents.human", "engine.wrapper", "runtime.session", "tournament",
+              "tournament.elo", "tournament.tournament", "utils.checkpoint", "runtime.block",
+              "runtime.device_tournament", "runtime.tournament_check", "cli", "cli.run",
+              "experiments.simple_tournament"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -80,8 +85,19 @@ def test_cuda_entry_points_raise_without_a_card():
     from rl6nimmt_torch.runtime.device_match import make_device_match_fn
     from rl6nimmt_torch.runtime.vector import (dqn_replay_example, make_dqn_selfplay_step,
                                                make_random_rollout, make_random_rollout_generations)
+    from rl6nimmt_torch.agents import DQNVanilla, DrunkHamster, Human, Noisy_D3QN_PRB_NStep
+    from rl6nimmt_torch.cli import run as cli_run
+    from rl6nimmt_torch.engine.wrapper import SechsNimmtEnv
+    from rl6nimmt_torch.experiments import simple_tournament
+    from rl6nimmt_torch.runtime import device_tournament
+    from rl6nimmt_torch.runtime.block import BlockSession
+    from rl6nimmt_torch.runtime.device_tournament import DeviceBlockSession
+    from rl6nimmt_torch.runtime.session import GameSession
+    from rl6nimmt_torch.runtime.tournament_check import tournament_card_against_cpu
+    from rl6nimmt_torch.tournament import Tournament
 
     cfg = EnvConfig(4)
+    cpu_hamster = DrunkHamster(seed=0, device="cpu")
     spec = q_network_spec(DQNConfig(hidden_sizes=(8,)), cfg.state_length, cfg.num_actions)
     net = MLPSpec(cfg.state_length + 1)
     tree = {"trunk": [{"w": [[0.0]], "b": [0.0]}], "heads": []}
@@ -139,6 +155,20 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: trainable_bench.ReinforceArm(cfg, 8, "cuda"),
         lambda: trainable_bench.AcerArm(cfg, 8, "cuda"),
         lambda: trainable_bench.main([]),
+        # the tournament
+        lambda: SechsNimmtEnv(4),
+        lambda: GameSession(object(), object()),
+        lambda: BlockSession([[object(), object()]]),
+        lambda: Tournament(),
+        lambda: DrunkHamster(seed=0),
+        lambda: Human(),
+        lambda: DQNVanilla(seed=0),
+        lambda: Noisy_D3QN_PRB_NStep(seed=0),
+        lambda: DeviceBlockSession([[cpu_hamster, cpu_hamster]]),
+        lambda: device_tournament.make_device_block_fn(cfg, net, 2, 8),
+        lambda: tournament_card_against_cpu(),
+        lambda: cli_run.main(["--games", "1"]),
+        lambda: simple_tournament.main(["--scale", "0.001"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -149,3 +179,9 @@ def test_cuda_entry_points_raise_without_a_card():
     scores = make_device_match_fn(cfg, ("uniform", "random") * 2, None, 2, mc_max=4, device="cpu")(
         (None,) * 4, torch.Generator())
     assert scores.shape == (2, 4) and (scores <= 0).all()
+    states, legal = SechsNimmtEnv(4, seed=0, device="cpu").reset()
+    assert len(states) == 4 and all(len(h) == 10 for h in legal)
+    session = GameSession(cpu_hamster, DrunkHamster(seed=1, device="cpu"), device="cpu")
+    session.play_game()
+    (block,) = DeviceBlockSession([[cpu_hamster, cpu_hamster]], device="cpu").play()
+    assert (session.results[0] <= 0).all() and block.shape == (2,) and (block <= 0).all()

@@ -3,6 +3,8 @@
 Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -510,3 +512,64 @@ def test_learner_step_launches_k2_once_and_k1_ten_times(learner):
     torch.cuda.synchronize()
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": cfg.max_turns}
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+# ------------------------------------------------------------- the tournament
+
+
+def test_tournament_block_on_card_equals_cpu():
+    """Eight games at P = 4 seating every family, on the card and on the CPU
+    on one noise (``runtime/tournament_check.py``); then K1 against its twin on
+    the block's own turns and K2 on its deal."""
+    from rl6nimmt_torch.runtime.tournament_check import tournament_card_against_cpu
+
+    dev = _cuda()
+    out = tournament_card_against_cpu()
+    assert out["equal"], ({k: v for k, v in out["exact"].items() if not v},
+                          {k: v for k, v in out["f32"].items() if v > 1.0})
+    cfg, seed, games = out["deal"]
+    for a, b in zip(deal_games(cfg, seed, games, device=dev), deal_games_plain(cfg, seed, games, "cpu")):
+        assert torch.equal(a.cpu(), b)
+    for board, row_len, acts in out["k1_inputs"]:
+        got = resolve_turn(cfg, board.to(dev), row_len.to(dev), acts.to(dev))
+        for a, b in zip(got, resolve_turn_plain(cfg, board, row_len, acts)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_wrapper_launches_k2_a_reset_and_k1_a_step():
+    from rl6nimmt_torch.engine.wrapper import SechsNimmtEnv
+
+    _cuda()
+    env = SechsNimmtEnv(4, seed=3)
+    _build.reset_launches()
+    _, legal = env.reset()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1}
+    done = False
+    while not done:
+        (_, legal), rewards, done, _ = env.step([hand[0] for hand in legal])
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10}
+    assert (env.scores >= 0).all()
+
+
+@pytest.mark.parametrize("K", [8, 32])
+def test_device_block_launches(K):
+    """A block launches K2 once and K1 once a game turn and once a playout turn
+    of every search call: the seats without a net (random, MCS) and each
+    PUCT agent decide in one call each, ceil(n_mc / K) rounds of n turns."""
+    from rl6nimmt_torch import agents as tag
+    from rl6nimmt_torch.runtime.device_tournament import DeviceBlockSession
+
+    _cuda()
+    kw = dict(mc_max=16, mc_per_card=10)
+    rnd, mcs = tag.DrunkHamster(seed=0), tag.MCSAgent(seed=1, **kw)
+    puct = tag.PUCTAgent(seed=2, batch_playouts=K, **kw)
+    dqn = tag.Noisy_D3QN(seed=3)
+    session = DeviceBlockSession([[rnd, mcs, puct], [mcs, puct, dqn], [puct, rnd, dqn]] * 4, batch=K)
+    _build.reset_launches()
+    session.dispatch()
+    torch.cuda.synchronize()
+    rounds = lambda n: -(-min(16, 10 * math.factorial(n)) // K)
+    want = 10 + 2 * sum(rounds(n) * n for n in range(1, 11))
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": want}
+    scores = session.finalize()
+    assert len(scores) == 12 and all((s <= 0).all() for s in scores)
