@@ -86,13 +86,30 @@ process per source), then:
    of each call; then 8 games at P=4 seating every family on the card and on the
    CPU on one noise (``runtime/tournament_check.py``), K1 and K2 against their
    twins at every group's shapes, and last one more block of two-seat
-   lineups traced for its kernels (device-busy share, launches).
+   lineups traced for its kernels (device-busy share, launches).  Device
+   learning (``runtime/device_learn.py``): before the first device block the
+   tournament is pickled, and after it the copy plays the same block again on
+   the same ``np.random`` state with ``device_learning=True``: each group must
+   launch what the host-learning block's group launched and the whole call
+   nothing more, every planner's replay runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no wait for the card), and each
+   learner's params must agree with the host-learning copy's (the search
+   agents and ring DQNs equal, PER within rtol 1e-4, ACER within 2e-2); both
+   blocks' games/s and ``block.learn`` shares are printed;
+10. drives the arena (``runtime/arena.py``): with every counter at 0 just
+   before each, ``play_match`` of the published learners (Random,
+   Noisy-D3QN-PER-10step, ACER) and a REINFORCE agent at P=4, and of ACER
+   against an epsilon-greedy D3QN-PER-10step, at G=4096, each required to
+   launch K2 once and K1 ten times and nothing else, every game's penalties
+   <= 0; their games/s; the four-seat match on the card and on the CPU on one
+   injected noise with equal scores; K1 and K2 against their twins at the
+   arena's shapes.
 
-Prints the ``search``, ``learners`` and ``tournament`` JSON lines, one JSON line of kernels
-(K1's to K5's rows also carry their launch shape and ptxas line, K2's and
+Prints the ``search``, ``learners``, ``tournament`` and ``arena`` JSON lines, one JSON line of
+kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
-K2's rows their launches on the search, the learners' and the tournament's
-path), the
+K2's rows their launches on the search, the learners', the tournament's and the
+arena's path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -101,6 +118,7 @@ is no CUDA device, when the package is missing, or when any check fails.
 import json
 import math
 import os
+import pickle
 import re
 import sys
 import time
@@ -155,8 +173,15 @@ SPANS = ("cycle.", "reinforce.", "acer.")
 # path's games, then device blocks of RESULTS.md's `--device-blocks --block 32`.
 HOST_TOURNAMENT_GAMES = 2  # play_game() calls
 HOST_TOURNAMENT_BLOCK = 4  # one play_block() of this many games
-TOURNAMENT_BLOCKS = 3      # play_device_block() calls; evolve before the last
+TOURNAMENT_BLOCKS = 2      # play_device_block() calls; evolve before the last
 TOURNAMENT_BLOCK = 32
+
+# Phase 10, the arena: the published learners (Random, Noisy-D3QN-PER-10step,
+# ACER) and a REINFORCE agent at P = 4, and a two-seat match of ACER against an
+# epsilon-greedy D3QN-PER-10step, each over ARENA_G games.
+ARENA_G = 4096
+ARENA_REPS = 3             # timed matches a lineup (after the counted one)
+ARENA_CHECK_G = 64         # the card against the CPU on one injected noise
 
 # Peak rates of one H100 SXM (NVIDIA's published figures): HBM
 # bytes/s and float32 operations/s outside the tensor cores.  Integer work is
@@ -548,23 +573,175 @@ def block_launches(session, cap):
     return {"deal_games": 1, "resolve_turn": k1}, {len(group) * K for group in calls.values()}
 
 
+def device_block(t, b, sessions, shapes, device_learning):
+    """One ``play_device_block(TOURNAMENT_BLOCK)`` of ``t`` with each group's
+    launches asserted (``sessions`` collects the dispatched groups and their
+    launches) and the whole call launching nothing more (the learn replay, on
+    the host or the device, launches no K1/K2); every learner that took an Adam
+    step moved.  With ``device_learning`` every planner's replay runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must not wait for the card.
+    Returns the block's record and its groups."""
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.runtime import device_learn as dl
+    from rl6nimmt_torch.runtime import device_tournament as dtm
+
+    learners = {n: (r.agent.opt_state.count, [x.clone() for x in tree_leaves(r.agent.parameters())])
+                for n, r in t.players.items() if r.active and r.agent.parameters() is not None
+                and r.agent.opt_state is not None}
+    planners = (dl.DQNPlanner, dl.ACERPlanner, dl.ReinforcePlanner)
+    originals = [p.dispatch for p in planners]
+    replays = []
+    # The learn time of the device-learnable agents alone: their host ``learn``
+    # calls, or their planners' bookkeeping, dispatch and install.
+    learners_s = [0.0]
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                learners_s[0] += time.perf_counter() - t0
+        return run
+
+    if device_learning:
+        methods = [(p, m) for p in planners for m in ("on_step", "dispatch", "finalize")]
+    else:
+        from rl6nimmt_torch.agents import BatchedACERAgent, BatchedReinforceAgent, DQNAgent, MaskedReinforceAgent
+        methods = [(c, "learn") for c in (DQNAgent, BatchedACERAgent, BatchedReinforceAgent, MaskedReinforceAgent)]
+    saved = [(c, m, c.__dict__.get(m)) for c, m in methods]
+
+    def unsynced(dispatch):
+        def run(self):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = dispatch(self)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            replays.append(type(self).__name__)
+            return out
+        return run
+
+    first_session = len(sessions)
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    if device_learning:
+        for p, dispatch in zip(planners, originals):
+            p.dispatch = unsynced(dispatch)
+    for c, m, _ in saved:
+        setattr(c, m, timed(getattr(c, m)))
+    try:
+        t.play_device_block(TOURNAMENT_BLOCK, bucket=TOURNAMENT_BLOCK, device_learning=device_learning)
+        torch.cuda.synchronize()
+    finally:
+        for c, m, fn in saved:
+            if fn is None:
+                delattr(c, m)
+            else:
+                setattr(c, m, fn)
+        for p, dispatch in zip(planners, originals):
+            p.dispatch = dispatch
+    wall = time.perf_counter() - t0
+    whole = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    groups, total = [], {}
+    for session, got in sessions[first_session:]:
+        want, lanes = block_launches(session, dtm.SINGLE_ROUND_CAP)
+        shapes.setdefault(session.cfg.num_players, set()).update(lanes | {len(session.lineups)})
+        if got != want:
+            raise AssertionError(f"block {b}: a group of {len(session.lineups)} games at "
+                                 f"P={session.cfg.num_players} launched {got}, expected {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        groups.append({"games": len(session.lineups), "players": session.cfg.num_players,
+                       "launches": got, **session.timings})
+    if sum(g["games"] for g in groups) != TOURNAMENT_BLOCK:
+        raise AssertionError(f"block {b}: its device groups played {[g['games'] for g in groups]} games")
+    if whole != total:
+        raise AssertionError(f"block {b}: the call launched {whole}, its groups' play {total}")
+    moved = {}
+    for n, (count, start) in learners.items():
+        agent = t.players[n].agent
+        if agent.opt_state.count > count:
+            moved[n] = any(not torch.equal(x, y) for x, y in zip(tree_leaves(agent.parameters()), start))
+    if not all(moved.values()):
+        raise AssertionError(f"block {b}: learners that learned but did not move: {moved}")
+    if device_learning and not replays:
+        raise AssertionError(f"block {b}: device learning ran no planner")
+    learn_s = sum(g["replay_s"] for g in groups)
+    block = {"wall_s": wall, "games_per_s": TOURNAMENT_BLOCK / wall, "learn_s": learn_s,
+             "learn_share": learn_s / wall, "play_s": sum(g["device_s"] for g in groups),
+             "groups": groups, "learned": sorted(moved), "device_learning": device_learning,
+             "device_replays": sorted(set(replays)), "learners_learn_s": learners_s[0]}
+    log(f"[9] device block {b} ({TOURNAMENT_BLOCK} games, {len(groups)} groups"
+        f"{', device learning' if device_learning else ''}): {wall:.2f} s, {TOURNAMENT_BLOCK / wall:.2f} games/s, "
+        f"block.learn {learn_s:.2f} s (the DQN/ACER/REINFORCE agents' {learners_s[0]:.2f} s); learned "
+        f"{sorted(moved)}; launches a group {[g['launches'] for g in groups]}")
+    return block, groups
+
+
+# Host replay against device replay, each learner's params after the same
+# block (tests/test_torch_device_learn.py): ring DQNs and REINFORCE bit for bit,
+# PER within its float32 bookkeeping, ACER over a block; the agents that learn
+# on the host in both copies (the search agents) equal.
+TWIN_TOLERANCE = {"per": (1e-4, 1e-6), "acer": (2e-2, 1e-4)}
+
+
+def twins_agree(t, twin):
+    """Each learner of ``t`` (host learning) against its copy in ``twin``
+    (device learning): params within the CPU test's tolerance, equal Adam
+    counts, a DQN's host buffer size equal to its device buffer's.  Returns the
+    largest difference a learner."""
+    from rl6nimmt_torch.agents import BatchedACERAgent, DQNAgent
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+
+    worst = {}
+    for n, r in t.players.items():
+        a, d = r.agent, twin.players[n].agent
+        if a.parameters() is None or a.opt_state is None or a.opt_state.count == 0:
+            continue
+        if a.opt_state.count != d.opt_state.count:
+            raise AssertionError(f"{n}: {a.opt_state.count} Adam steps on the host, {d.opt_state.count} on the device")
+        kind = "per" if isinstance(a, DQNAgent) and a.cfg.per else "acer" if isinstance(a, BatchedACERAgent) else None
+        rtol, atol = TWIN_TOLERANCE.get(kind, (0.0, 0.0))
+        err = 0.0
+        for x, y in zip(tree_leaves(a.parameters()), tree_leaves(d.parameters())):
+            if not torch.allclose(y, x, rtol=rtol, atol=atol):
+                raise AssertionError(f"{n}: device-learned params differ from the host-learned beyond "
+                                     f"rtol {rtol}, atol {atol}: {float((x - y).abs().max())}")
+            err = max(err, float((x - y).abs().max()))
+        if isinstance(a, DQNAgent) and len(a.history) != d._device_replay["size"]:
+            raise AssertionError(f"{n}: host buffer {len(a.history)}, device buffer {d._device_replay['size']}")
+        worst[n] = err
+    if not worst:
+        raise AssertionError("no learner took an Adam step in the compared block")
+    return worst
+
+
 def tournament_phase(dev, card):
     """Phase 9, the tournament: the published population on the host path
     (play_game, play_block) and the device path (play_device_block, evolve
-    before the last block), each launch count asserted; ELO zero-sum; the
+    before the last block; the first block played again on a pickled copy with
+    device learning, :func:`device_block`, :func:`twins_agree`), each launch
+    count asserted; ELO zero-sum; the
     learners that learned moved; then the card against the CPU on one noise,
     K1/K2 against their twins at the blocks' shapes, and last one traced block.
     Returns the ``tournament`` line, the path's launches and the twin errors."""
     import numpy as np
 
     from rl6nimmt_torch.agents import MCSAgent, PUCTAgent
-    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.buffers.host import _native
     from rl6nimmt_torch.engine import EnvConfig
     from rl6nimmt_torch.experiments.simple_tournament import population
     from rl6nimmt_torch.ops import _build
     from rl6nimmt_torch.runtime import device_tournament as dtm
     from rl6nimmt_torch.runtime.tournament_check import tournament_card_against_cpu
     from rl6nimmt_torch.tournament import Tournament
+
+    # The host replay's native sum tree (D3QN's PER) builds with g++ at its first
+    # sample in a process; build it here, so that no timed block pays for it.
+    _native()
 
     np.random.seed(90)
     t = Tournament(min_players=2, max_players=4, device=dev)
@@ -625,45 +802,36 @@ def tournament_phase(dev, card):
         log(f"[9] host path: {HOST_TOURNAMENT_GAMES} play_game + play_block({HOST_TOURNAMENT_BLOCK}) in "
             f"{host['seconds']:.1f} s, launches {host['launches']} (each game's asserted)")
 
-        blocks, shapes = [], {}
+        blocks, shapes, twin = [], {}, None
         for b in range(TOURNAMENT_BLOCKS):
             if b == TOURNAMENT_BLOCKS - 1:
                 t.evolve(max_players=6, max_per_descendant=2, copies=(2,))
-            learners = {n: (r.agent.opt_state.count, [x.clone() for x in tree_leaves(r.agent.parameters())])
-                        for n, r in t.players.items() if r.active and r.agent.parameters() is not None
-                        and r.agent.opt_state is not None}
-            first_session = len(sessions)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            t.play_device_block(TOURNAMENT_BLOCK, bucket=TOURNAMENT_BLOCK)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            groups = []
-            for session, got in sessions[first_session:]:
-                want, lanes = block_launches(session, dtm.SINGLE_ROUND_CAP)
-                shapes.setdefault(session.cfg.num_players, set()).update(lanes | {len(session.lineups)})
-                if got != want:
-                    raise AssertionError(f"block {b}: a group of {len(session.lineups)} games at "
-                                         f"P={session.cfg.num_players} launched {got}, expected {want}")
-                groups.append({"games": len(session.lineups), "players": session.cfg.num_players,
-                               "launches": got, **session.timings})
-            if sum(g["games"] for g in groups) != TOURNAMENT_BLOCK:
-                raise AssertionError(f"block {b}: its device groups played {[g['games'] for g in groups]} games")
-            moved = {}
-            for n, (count, start) in learners.items():
-                agent = t.players[n].agent
-                if agent.opt_state.count > count:
-                    moved[n] = any(not torch.equal(x, y) for x, y in zip(tree_leaves(agent.parameters()), start))
-            if not all(moved.values()):
-                raise AssertionError(f"block {b}: learners that learned but did not move: {moved}")
-            learn_s = sum(g["replay_s"] for g in groups)
-            blocks.append({"wall_s": wall, "games_per_s": TOURNAMENT_BLOCK / wall, "learn_s": learn_s,
-                           "learn_share": learn_s / wall, "play_s": sum(g["device_s"] for g in groups),
-                           "groups": groups, "learned": sorted(moved)})
-            log(f"[9] device block {b} ({TOURNAMENT_BLOCK} games, {len(groups)} groups"
-                f"{', after evolve' if b == TOURNAMENT_BLOCKS - 1 else ''}): {wall:.2f} s, "
-                f"{TOURNAMENT_BLOCK / wall:.2f} games/s, block.learn {learn_s:.2f} s; learned {sorted(moved)}; "
-                f"launches a group {[g['launches'] for g in groups]}")
+            if b == 0:
+                # The device-learning copy: the tournament as it stands (agents,
+                # generators, buffers), to play this block again on the same
+                # np.random state with device_learning=True.
+                del t.score_game        # the counting patch is a closure; it stays off the copy
+                twin, rng_state = pickle.loads(pickle.dumps(t)), np.random.get_state()
+                t.score_game = scored
+            block, groups = device_block(t, b, sessions, shapes, device_learning=False)
+            blocks.append(block)
+            if b == 0:
+                after = np.random.get_state()
+                np.random.set_state(rng_state)
+                learning, twin_groups = device_block(twin, b, sessions, shapes, device_learning=True)
+                np.random.set_state(after)
+                if [g["launches"] for g in twin_groups] != [g["launches"] for g in groups]:
+                    raise AssertionError(f"device learning changed the groups' launches: "
+                                         f"{[g['launches'] for g in twin_groups]} against "
+                                         f"{[g['launches'] for g in groups]}")
+                learning["params_vs_host_learning"] = twins_agree(t, twin)
+                log(f"[9] device learning, block {b} again on a copy: {learning['wall_s']:.2f} s, "
+                    f"{learning['games_per_s']:.2f} games/s (host learning {block['games_per_s']:.2f}), "
+                    f"block.learn {learning['learn_s']:.2f} s = {100 * learning['learn_share']:.1f} % of the block "
+                    f"(host learning {100 * block['learn_share']:.1f} %; PERF.md's earlier blocks: 9.8-16.8 %); the DQN/ACER/REINFORCE "
+                    f"agents' learn {learning['learners_learn_s']:.2f} s (host {block['learners_learn_s']:.2f} s); "
+                    f"the same launches "
+                    f"a group; params against the host-learning copy {learning['params_vs_host_learning']}")
         torch.cuda.synchronize()
         path_launches = dict(_build.LAUNCHES)
         # ---- end of the tournament's path ----
@@ -734,11 +902,83 @@ def tournament_phase(dev, card):
     line = {"players": sorted(t.players), "block_shapes": shapes,
             "host": host, "device_blocks": blocks, "elo_zero_sum_max": worst_elo,
             "games_per_s": [b["games_per_s"] for b in blocks], "learn_share": [b["learn_share"] for b in blocks],
+            "device_learning_block": learning,
             "card_vs_cpu": {"exact": len(check["exact"]), "f32": check["f32"]},
             "profile": {k: traced[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "kernel_launches",
                                                "phase_host_ms")},
             "card": card}
     return line, path_launches, errs
+
+
+def arena_phase(dev, card):
+    """Phase 10, the arena (``runtime/arena.py``): with every launch counter at
+    0 just before each, ``play_match`` of the four-seat and the two-seat lineup
+    at ARENA_G games, each required to launch K2 once and K1 ten times and
+    nothing else, every game's penalties <= 0; then its games/s (the median of
+    ARENA_REPS more matches); the four-seat match on the card and on the CPU on
+    one injected noise, with equal scores; K1 and K2 against their twins at the
+    arena's shapes.  Returns the ``arena`` line, the path's launches and the
+    twin errors."""
+    import numpy as np
+
+    from rl6nimmt_torch.agents import BatchedReinforceAgent, D3QN_PRB_NStep
+    from rl6nimmt_torch.agents.dqn import eps_func_decay
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments.simple_tournament import population
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.runtime import play_match, seat_policy_of
+    from rl6nimmt_torch.runtime.arena import ArenaNoise, draw_seat
+
+    pop = population(93, device=dev)
+    reinforce = BatchedReinforceAgent(seed=97, device=dev)
+    greedy = D3QN_PRB_NStep(history_length=100_000, n_steps=10, seed=98, device=dev)
+    greedy.eps = eps_func_decay(400)        # epsilon-greedy past 400 episodes: both branches act
+    lineups = {"four_seat": [pop["Random"], pop["D3QN"], pop["ACER"], reinforce],
+               "two_seat": [pop["ACER"], greedy]}
+    path = {}
+    matches = {}
+    for name, agents in lineups.items():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        scores = play_match(agents, ARENA_G, seed=94, device=dev)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if got != {"deal_games": 1, "resolve_turn": 10}:
+            raise AssertionError(f"arena {name}: launched {got}, expected K2 once and K1 ten times")
+        for k, v in got.items():
+            path[k] = path.get(k, 0) + v
+        if scores.shape != (ARENA_G, len(agents)) or not (scores <= 0).all() or not (scores.sum(1) < 0).all():
+            raise AssertionError(f"arena {name}: scores of shape {scores.shape}, max {scores.max()}")
+        walls = []
+        for r in range(ARENA_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            play_match(agents, ARENA_G, seed=95 + r, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[len(walls) // 2]
+        matches[name] = {"players": len(agents), "games": ARENA_G, "launches": got, "match_s": walls,
+                         "games_per_s": ARENA_G / wall, "mean_score": scores.mean(0).tolist()}
+        log(f"[10] arena {name} ({[type(a).__name__ for a in agents]}, {ARENA_G} games): launches {got}; "
+            f"{1e3 * wall:.1f} ms a match, {ARENA_G / wall:.0f} games/s; mean scores {scores.mean(0).round(2)}")
+
+    agents = lineups["four_seat"]
+    gen = torch.Generator().manual_seed(96)
+    policies = [seat_policy_of(a)[0] for a in agents]
+    noise = ArenaNoise(deal_seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
+                       turns=[[draw_seat(p, gen, ARENA_CHECK_G, 10) for p in policies] for _ in range(10)])
+    on_card = play_match(agents, ARENA_CHECK_G, device=dev, noise=noise)
+    on_cpu = play_match(agents, ARENA_CHECK_G, device="cpu", noise=noise)
+    if not np.array_equal(on_card, on_cpu):
+        raise AssertionError(f"the arena on the card differs from the CPU in "
+                             f"{int((on_card != on_cpu).any(1).sum())} of {ARENA_CHECK_G} games")
+    log(f"[10] the four-seat match on the card == on the CPU on one noise ({ARENA_CHECK_G} games)")
+    errs = {"resolve_turn": 0.0, "deal_games": 0.0}
+    for players in sorted({len(a) for a in lineups.values()}):
+        for k, err in k1_k2_against_twins(EnvConfig(players), [ARENA_G, ARENA_CHECK_G], 99, dev).items():
+            errs[k] = max(errs[k], err)
+    log(f"[10] K1 and K2 bit-exact vs twins at the arena's shapes (P 2 and 4; G {ARENA_G} and {ARENA_CHECK_G})")
+    return {"matches": matches, "card_vs_cpu_games": ARENA_CHECK_G, "card": card}, path, errs
 
 
 def main():
@@ -1213,6 +1453,16 @@ def main():
     if missing:
         raise AssertionError(f"kernels never launched on the tournament path: {missing}")
     print(json.dumps({"tournament": tournament_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 10
+    t0 = time.perf_counter()
+    arena_line, arena_launches, arena_errs = arena_phase(dev, card)
+    arena_line["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["arena_path_launches"] = arena_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], arena_errs[row["name"]])
+    print(json.dumps({"arena": arena_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,18 @@ Entry points take ``device=`` (default ``"cuda"``) and raise when no card is
 present unless the caller passes ``device="cpu"``.
 """
 
-from .engine import EnvConfig, EnvState
+from .engine import EnvConfig, EnvState, InvalidMoveException, SechsNimmtEnv
+from .runtime import GameSession
+from .tournament import Tournament
 
 __version__ = "0.1.0"
+
+__all__ = [
+    "EnvConfig",
+    "EnvState",
+    "GameSession",
+    "InvalidMoveException",
+    "SechsNimmtEnv",
+    "Tournament",
+    "__version__",
+]

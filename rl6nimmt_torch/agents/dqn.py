@@ -125,13 +125,17 @@ class Adam:
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
         count = state.count + 1
-        # Bias corrections in float32, as optax computes ``1 - decay**count``.
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
+        # Bias corrections in float32, as optax computes ``1 - decay**count``,
+        # placed on the device by a fill: copying a CPU tensor there would
+        # wait for the card, and a CPU scalar operand turns the division into
+        # a multiplication by its reciprocal on CUDA.
+        dev = tree_leaves(state.mu)[0].device
+        bc1 = torch.full((), float(1 - torch.tensor(b1, dtype=torch.float32) ** count), device=dev)
+        bc2 = torch.full((), float(1 - torch.tensor(b2, dtype=torch.float32) ** count), device=dev)
 
         def upd(m, v):
-            m_hat = m / bc1.to(m.device)
-            v_hat = v / bc2.to(v.device)
+            m_hat = m / bc1
+            v_hat = v / bc2
             return (m_hat / (torch.sqrt(v_hat) + self.eps)) * (-self.lr)
 
         return tree_map(upd, mu, nu), AdamState(count, mu, nu)

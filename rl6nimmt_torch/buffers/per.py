@@ -33,7 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..utils.device import resolve_device
-from .ring import circular_write
+from .ring import _one, circular_write
 
 ABS_ERROR_UPPER = 1.0
 EPSILON = 0.01
@@ -97,6 +97,15 @@ def _insert_priority(state: PERState) -> torch.Tensor:
     """The current max priority, 1.0 in an empty buffer (replay_buffer.py:150)."""
     max_p = state.priorities.max()
     return torch.where(max_p == 0.0, torch.ones_like(max_p) * ABS_ERROR_UPPER, max_p)
+
+
+def per_capacity(state: PERState) -> int:
+    return state.capacity
+
+
+def per_add(state: PERState, item) -> PERState:
+    """Insert one transition at the current max priority (1.0 in an empty buffer), in place."""
+    return per_add_batch(state, _one(item, state.storage))
 
 
 def per_add_batch(state: PERState, items: Dict[str, torch.Tensor]) -> PERState:

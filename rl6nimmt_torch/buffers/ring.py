@@ -53,6 +53,20 @@ def ring_init(capacity: int, example: Dict[str, torch.Tensor], device="cuda") ->
     return RingState(storage, 0, 0)
 
 
+def ring_capacity(state: RingState) -> int:
+    return state.capacity
+
+
+def _one(items, storage: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A single transition as a batch of one on the buffer's device."""
+    return {k: torch.as_tensor(items[k], device=buf.device)[None] for k, buf in storage.items()}
+
+
+def ring_add(state: RingState, item) -> RingState:
+    """Store one transition at the write pointer (wrapping overwrite, in place)."""
+    return ring_add_batch(state, _one(item, state.storage))
+
+
 def ring_add_batch(state: RingState, items: Dict[str, torch.Tensor]) -> RingState:
     """Store a leading-axis batch (wrapping overwrite, in place)."""
     n = next(iter(items.values())).shape[0]
@@ -62,6 +76,11 @@ def ring_add_batch(state: RingState, items: Dict[str, torch.Tensor]) -> RingStat
     for k, buf in state.storage.items():
         circular_write(buf, items[k], state.ptr)
     return RingState(state.storage, (state.ptr + n) % cap, min(state.size + n, cap))
+
+
+def ring_clear(state: RingState) -> RingState:
+    """Empty the ring (the storage keeps its contents, as in JAX)."""
+    return RingState(state.storage, 0, 0)
 
 
 def ring_sample(state: RingState, u: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

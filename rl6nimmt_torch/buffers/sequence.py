@@ -53,6 +53,10 @@ def seq_init(capacity: int, max_len: int, example: Dict[str, torch.Tensor], devi
                     ptr=0, size=0, current=zeros((max_len,)), cur_len=0)
 
 
+def seq_capacity(state: SeqState) -> int:
+    return state.capacity
+
+
 def seq_store(state: SeqState, item: Dict[str, torch.Tensor]) -> SeqState:
     """Append one step to the current (not yet flushed) sequence."""
     max_len = next(iter(state.current.values())).shape[0]

@@ -60,8 +60,8 @@ def main(argv=None):
                              "device, one block per player count (Tournament.play_device_block); implies "
                              "lockstep chunking")
     parser.add_argument("--device-learning", action="store_true",
-                        help="with --device-blocks: learner updates on the device too (ROADMAP queue 1 "
-                             "item 10, not ported yet: raises)")
+                        help="with --device-blocks: the DQN, ACER and REINFORCE learners' updates on the "
+                             "device too (runtime/device_learn.py)")
     parser.add_argument("--device", "--platform", dest="device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
@@ -72,10 +72,6 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    if args.device_learning:
-        from ..runtime.device_tournament import check_unported
-
-        check_unported(device_learning=True)
     logging.basicConfig(format="%(message)s", level=logging.DEBUG if args.verbose else logging.INFO)
     np.random.seed(args.seed)
 

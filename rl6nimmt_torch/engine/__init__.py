@@ -14,12 +14,14 @@ from .env import (
     step,
 )
 from .state import EnvConfig, EnvState
+from .wrapper import SechsNimmtEnv
 
 __all__ = [
     "EnvConfig",
     "EnvState",
     "InvalidMoveException",
     "POINTS_104",
+    "SechsNimmtEnv",
     "build_points_table",
     "card_points",
     "card_points_formula",

@@ -44,8 +44,8 @@ def main(argv=None):
                              "device, one block per player count (Tournament.play_device_block); only Human / "
                              "temperature-PUCT seats fall back to the host block driver")
     parser.add_argument("--device-learning", action="store_true",
-                        help="with --device-blocks: learner updates on the device too (ROADMAP queue 1 "
-                             "item 10, not ported yet: raises)")
+                        help="with --device-blocks: the DQN, ACER and REINFORCE learners' updates on the "
+                             "device too (runtime/device_learn.py)")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the latest stage checkpoint in --checkpoint-dir (like the notebook "
                              "reloading its .tournament*.pickle between sessions)")
@@ -56,10 +56,6 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    if args.device_learning:
-        from ..runtime.device_tournament import check_unported
-
-        check_unported(device_learning=True)
     logging.basicConfig(format="%(message)s", level=logging.INFO)
     for name in logging.root.manager.loggerDict:
         if "rl6nimmt" not in name:

@@ -1,6 +1,6 @@
 """Functional nets (port of ``rl6nimmt_tpu.nets``)."""
 
-from .convert import noise_from_jax, params_from_jax, params_to_numpy
+from .convert import adam_state_from_jax, noise_from_jax, params_from_jax, params_to_numpy
 from .mlp import (
     MLPSpec,
     draw_mlp_noise,
@@ -17,6 +17,7 @@ from .normalize import normalize_state
 
 __all__ = [
     "MLPSpec",
+    "adam_state_from_jax",
     "draw_mlp_noise",
     "dueling_apply",
     "linear_apply",

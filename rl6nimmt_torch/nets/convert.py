@@ -3,7 +3,8 @@
 Both use the same tree, ``{"trunk": [{"w", "b", "sigma_w", "sigma_b"}],
 "heads": [...]}`` with ``w [in, out]``, so conversion is a leaf-wise copy.
 The JAX side is handed over as numpy arrays (``jax.tree.map(np.asarray,
-params)``), so this module needs no JAX.
+params)``), so this module needs no JAX.  An ``optax.adam`` state converts to
+the port's :class:`~..agents.dqn.AdamState` (its step count and both moments).
 """
 
 from __future__ import annotations
@@ -37,3 +38,14 @@ def noise_from_jax(noise, device="cuda") -> list:
     dev = resolve_device(device)
     return [{k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
              for k, v in layer.items()} for layer in noise]
+
+
+def adam_state_from_jax(state, device="cuda"):
+    """The port's ``AdamState`` from an ``optax.adam`` state given as numpy
+    arrays: the element of the chain's state tuple that holds ``count``,
+    ``mu`` and ``nu`` (``ScaleByAdamState``)."""
+    from ..agents.dqn import AdamState
+
+    elems = (state,) if hasattr(state, "mu") else state
+    (adam,) = [e for e in elems if hasattr(e, "mu") and hasattr(e, "nu")]
+    return AdamState(int(np.asarray(adam.count)), params_from_jax(adam.mu, device), params_from_jax(adam.nu, device))

@@ -6,7 +6,9 @@ deal (``engine.deal``), then every turn each seat's decision and one K1
 resolution (``engine.step``), recording the full trajectory -- per turn and
 seat the observation, the padded legal hand, the chosen index, its log-prob,
 ACER's behaviour log-prob vector and the reward -- from which every learner's
-``learn`` stream replays host-side in the exact GameSession argument order.
+``learn`` stream replays in the exact GameSession argument order: host-side, or
+with ``device_learning`` the DQN, ACER and REINFORCE streams through the
+planners of :mod:`.device_learn`, whose updates run on the device.
 
 Seat kinds (an int per seat, as in JAX):
 
@@ -39,7 +41,7 @@ Protocol notes (the block deviations of PARITY.md #10-#12):
 * acting uses parameters frozen for the whole block; for epsilon-greedy DQNs
   the frozen quantity includes ``self.eps``;
 * ``learn`` receives the identical GameSession argument stream, replayed per
-  game in block order after the block;
+  game in block order after the block (or its planner does);
 * NumPy's global generator is consumed in JAX's order: one ``randint`` a
   :meth:`DeviceBlockSession.dispatch`, which here seeds the block's generator;
 * only Human seats, PUCT with temperature sampling and PUCT whose
@@ -89,6 +91,7 @@ from ..engine import EnvConfig, EnvState, deal, observe, step
 from ..nets import MLPSpec, draw_mlp_noise, dueling_apply, mlp_apply, noisy_effective_params
 from ..nets.mlp import _activation
 from ..utils.device import resolve_device
+from .device_learn import make_planner
 from .device_match import board_seen
 
 # Seat kinds 0-4 are the search families (device_search.KIND_*); learner
@@ -104,12 +107,8 @@ SINGLE_ROUND_CAP = 256
 NET_KINDS = (KIND_POLICY, KIND_PUCT, KIND_PUCT_UNIFORM)
 
 
-def check_unported(mesh=None, device_learning: bool = False) -> None:
-    """Raise for the two options whose JAX machinery is not ported yet."""
-    if device_learning:
-        raise NotImplementedError(
-            "device_learning=True: the device-side learner updates (runtime/device_learn.py) are "
-            "ROADMAP queue 1 item 10, not ported yet")
+def check_unported(mesh=None) -> None:
+    """Raise for the option whose JAX machinery is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh: sharding a block's games over several cards is ROADMAP queue 1 item 11 (data parallel), "
@@ -576,16 +575,18 @@ class BlockInputs:
 
 class DeviceBlockSession:
     """Play G same-player-count games as one device block, then replay learning
-    host-side (the device twin of :class:`..runtime.block.BlockSession` for
-    eligible lineups).
+    on the host or the device (the device twin of
+    :class:`..runtime.block.BlockSession` for eligible lineups).
 
     ``batch`` is the PUCT round width K (default 8, the search agents' own
     default; JAX's session ran 32) and gates PUCT eligibility
     (:func:`seat_kind`).  A block without PUCT seats runs each decision's
     playouts in as few rounds as ``single_round_cap`` lanes a seat allow (JAX:
     one round of the budget's pow2 ceiling, uncapped).  ``bucket`` only
-    checks that it covers the games (JAX padded to it); ``mesh`` and
-    ``device_learning`` raise (ROADMAP queue 1 items 11 and 10).
+    checks that it covers the games (JAX padded to it); ``mesh`` raises
+    (ROADMAP queue 1 item 11).  ``device_learning=True`` routes the learner
+    streams (DQN, ACER, both REINFORCE variants) to the device planners of
+    :mod:`.device_learn` instead of the host ``learn`` replay.
     """
 
     def __init__(
@@ -599,7 +600,7 @@ class DeviceBlockSession:
         single_round_cap: int = SINGLE_ROUND_CAP,
         device="cuda",
     ):
-        check_unported(mesh, device_learning)
+        check_unported(mesh)
         assert lineups, "need at least one game"
         P = len(lineups[0])
         assert all(len(l) == P for l in lineups), "uniform player count required"
@@ -609,6 +610,7 @@ class DeviceBlockSession:
         self.bucket = bucket
         assert bucket is None or bucket >= len(self.lineups), (bucket, len(self.lineups))
         self.single_round_cap = single_round_cap
+        self.device_learning = device_learning
         sigs = {lineup_signature(agents, batch) for agents in self.lineups}
         assert None not in sigs, "ineligible lineup (use BlockSession)"
         cfgs = {cfg for cfg, _, _ in sigs}
@@ -704,8 +706,10 @@ class DeviceBlockSession:
         return self
 
     def finalize(self) -> List[np.ndarray]:
-        """Fetch the trajectory and replay every learner's ``learn`` stream
-        host-side, per game in block order."""
+        """Fetch the trajectory and replay every learner's ``learn`` stream per
+        game in block order: on the host, or with ``device_learning`` through
+        the device planners (the same bookkeeping and ``np.random`` order, the
+        updates on the device)."""
         blk, self._block = self._block, None
         families, t0, t1 = blk["families"], blk["t0"], blk["t1"]
         P, H = self.cfg.num_players, self.cfg.hand_size
@@ -721,6 +725,17 @@ class DeviceBlockSession:
         final_obs = host(blk["final_obs"], np.float32)
         t2 = time.perf_counter()
 
+        # A learner's planner is made at its first step, as JAX's: its device
+        # buffer is created (or migrated) from the agent's state then.
+        planners = {}
+
+        def planner_for(agent):
+            if not self.device_learning:
+                return None
+            if id(agent) not in planners:
+                planners[id(agent)] = make_planner(agent)
+            return planners[id(agent)]
+
         # The GameSession argument stream per game in block order (reward lag
         # incl., play.py:29-72).  Per-family infos mirror what each host
         # forward returns and its learn consumes: search/pv/reinforce step
@@ -735,21 +750,31 @@ class DeviceBlockSession:
                         pick = int(picks[t, g, i])
                         action = int(hands[t, g, i, pick])
                         fam = families[g][i]
+                        if fam == "rmask":
+                            mask = np.zeros(self.cfg.num_cards, dtype=bool)
+                            mask[hands[t, g, i][hands[t, g, i] >= 0]] = True
+                            # masked variant: chosen indexes the 104-card logits, i.e. the card itself.
+                            record = {"state": obs[t, g, i], "legal_mask": mask, "chosen": np.int32(action)}
+                        elif fam not in ("random", "dqn", "acer"):  # search / pv / rai: padded-hand records
+                            record = {"state": obs[t, g, i], "legal_cards": hands[t, g, i], "chosen": np.int32(pick)}
+                        planner = planner_for(agent) if fam in ("dqn", "acer", "rai", "rmask") else None
+                        if planner is not None:
+                            if fam == "dqn":
+                                planner.on_step(state=obs[t, g, i], reward=prev_rewards[i], action=action,
+                                                next_state=final_obs[g, i] if done else obs[t + 1, g, i], done=done)
+                            elif fam == "acer":
+                                planner.on_step(state=obs[t, g, i], legal_cards=hands[t, g, i],
+                                                log_probs=logp_vecs[t, g, i], action_id=pick,
+                                                next_reward=rewards[t, g, i], done=done, episode_end=done)
+                            else:
+                                planner.on_step(step_record=record, reward=prev_rewards[i], episode_end=done)
+                            continue
                         if fam in ("random", "dqn"):
                             info = {}
                         elif fam == "acer":
                             info = {"log_probs": logp_vecs[t, g, i], "action_id": pick}
-                        elif fam == "rmask":
-                            mask = np.zeros(self.cfg.num_cards, dtype=bool)
-                            mask[hands[t, g, i][hands[t, g, i] >= 0]] = True
-                            # masked variant: chosen indexes the 104-card logits, i.e. the card itself.
-                            info = {"log_prob": float(logps[t, g, i]),
-                                    "step_record": {"state": obs[t, g, i], "legal_mask": mask,
-                                                    "chosen": np.int32(action)}}
-                        else:  # search / pv / rai: padded-hand step records
-                            info = {"log_prob": float(logps[t, g, i]),
-                                    "step_record": {"state": obs[t, g, i], "legal_cards": hands[t, g, i],
-                                                    "chosen": np.int32(pick)}}
+                        else:
+                            info = {"log_prob": float(logps[t, g, i]), "step_record": record}
                         agent.learn(
                             state=obs[t, g, i],
                             legal_actions=[int(c) for c in hands[t, g, i] if c >= 0],
@@ -764,6 +789,12 @@ class DeviceBlockSession:
                             **info,
                         )
                     prev_rewards = rewards[t, g]
+            # Two phases, as JAX's: every agent's replay is dispatched before
+            # any result is installed; nothing waits for the card in between.
+            dispatched = [(p, p.dispatch()) for p in planners.values() if p is not None]
+            for planner, handles in dispatched:
+                if handles is not None:
+                    planner.finalize(handles)
         t3 = time.perf_counter()
         self.timings = {"assemble_s": t1 - t0, "device_s": t2 - t1, "replay_s": t3 - t2}
         self.results = [scores[g] for g in range(len(self.lineups))]

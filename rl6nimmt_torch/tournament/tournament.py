@@ -309,7 +309,10 @@ class Tournament:
         .DeviceBlockSession` per (env dims, search net, fast-path class)
         group: one K2 deal, then every turn the search seats' playouts and the
         learner seats' forwards on the device and one K1 resolution.  Every
-        learner's updates replay host-side from the captured trajectories.
+        learner's updates replay host-side from the captured trajectories, or
+        with ``device_learning=True`` those of the DQN, ACER and REINFORCE
+        learners run on the device (:mod:`..runtime.device_learn`); a
+        learner's games must then all be device games.
         Remaining games (Human seats, PUCT with temperature sampling or a
         ``batch_playouts`` other than the session's K) go through the host
         :class:`BlockSession`.  Parameter staleness is bounded by the block,
@@ -320,8 +323,7 @@ class Tournament:
         no compile exists to save, so only the real games are played
         (``PARITY_TORCH.md`` §14).  ``pipeline=True`` dispatches every group
         before finalizing any, so all seats act on block-start parameters.
-        ``device_learning`` (ROADMAP queue 1 item 10) and ``mesh`` (item 11)
-        are not ported yet and raise.
+        ``mesh`` (ROADMAP queue 1 item 11) is not ported yet and raises.
         """
         from ..runtime.block import BlockSession
         from ..runtime.device_tournament import (
@@ -333,7 +335,7 @@ class Tournament:
             seat_slot,
         )
 
-        check_unported(mesh, device_learning)
+        check_unported(mesh)
         # Learner slots are population-wide (not per-lineup), as in JAX:
         # culled-but-retained agents keep their slot, so a slot's index -- a
         # learner seat's kind -- is the same in every block.
@@ -355,11 +357,21 @@ class Tournament:
             else:
                 host.append((j, agents))
 
+        if device_learning:
+            # A device-learned agent's replay buffer lives on the device; a
+            # learner also learning through the host BlockSession would split
+            # its training state, so every learner-holding lineup must be a
+            # device lineup (true without Human / temperature-PUCT seats).
+            for _, agents in host:
+                assert not any(seat_slot(a) is not None and seat_slot(a)[0] == "learner" for a in agents), \
+                    "device_learning: learner routed to a host lineup"
+
         scores = {}
         sessions = []
         for group in device_groups.values():
             session = DeviceBlockSession(
-                [agents for _, agents in group], bucket=bucket, slots=slots, device=self.device,
+                [agents for _, agents in group], bucket=bucket, slots=slots, device_learning=device_learning,
+                device=self.device,
             ).dispatch()
             if pipeline:
                 sessions.append((group, session))

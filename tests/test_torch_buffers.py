@@ -199,3 +199,56 @@ def test_per_kd_mark_batch_matches_jax():
         ts.priorities.copy_(torch.tensor(pri))
     with pytest.raises(ValueError):
         tper.per_mark_batch(ts, ts.storage, cap + 1)
+
+
+# ------------------------------------------------------- single-item adds
+
+
+def test_ring_add_capacity_and_clear_match_jax():
+    """``tests/test_buffers.py``'s wraparound on both packages: six single adds
+    into four slots overwrite slots 0 and 1; ``ring_clear`` empties the ring
+    and keeps the storage, as JAX's."""
+    js = jring.ring_init(4, _j(_example()))
+    ts = tring.ring_init(4, _t(_example()), device="cpu")
+    rng = np.random.RandomState(3)
+    for _ in range(6):
+        item = {k: v[0] for k, v in _items(rng, 1).items()}
+        js = jring.ring_add(js, _j(item))
+        ts = tring.ring_add(ts, _t(item))
+    for k in js.storage:
+        np.testing.assert_array_equal(ts.storage[k].numpy(), np.asarray(js.storage[k]))
+    assert (ts.ptr, ts.size) == (int(js.ptr), int(js.size)) == (2, 4)
+    assert tring.ring_capacity(ts) == jring.ring_capacity(js) == 4
+    stored = {k: v.clone() for k, v in ts.storage.items()}
+    cleared, jcleared = tring.ring_clear(ts), jring.ring_clear(js)
+    assert (cleared.ptr, cleared.size) == (int(jcleared.ptr), int(jcleared.size)) == (0, 0)
+    assert all(torch.equal(cleared.storage[k], v) for k, v in stored.items())
+
+
+def test_per_add_and_capacity_match_jax():
+    """``tests/test_buffers.py``'s overfill with single adds (110 into 100), with
+    priority updates between the adds so each insert takes a new maximum; the
+    empty buffer's first insert gets 1.0."""
+    js = jper.per_init(100, _j(_example()))
+    ts = tper.per_init(100, _t(_example()), device="cpu")
+    rng = np.random.RandomState(4)
+    for i in range(110):
+        item = {k: v[0] for k, v in _items(rng, 1).items()}
+        js = jper.per_add(js, _j(item))
+        ts = tper.per_add(ts, _t(item))
+        if i % 25 == 24:
+            idx = np.sort(rng.choice(min(i + 1, 100), size=5, replace=False))
+            err = rng.rand(5).astype(np.float32)
+            js = jper.per_update(js, jnp.asarray(idx), jnp.asarray(err))
+            ts = tper.per_update(ts, torch.from_numpy(idx), torch.from_numpy(err))
+    _assert_same(js, ts)
+    assert tper.per_capacity(ts) == jper.per_capacity(js) == 100 and ts.size == 100
+
+
+def test_seq_capacity_matches_jax():
+    from rl6nimmt_tpu.buffers import sequence as jseq
+    from rl6nimmt_torch.buffers import sequence as tseq
+
+    example = {"x": np.zeros(3, np.float32)}
+    assert tseq.seq_capacity(tseq.seq_init(6, 4, _t(example), device="cpu")) == \
+        jseq.seq_capacity(jseq.seq_init(6, 4, _j(example))) == 6

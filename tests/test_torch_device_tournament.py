@@ -5,8 +5,8 @@
   from ``fold_in(seat key, 1..3)`` rebuilt as the port's noise.
 * A whole block against JAX's: ``tests/test_torch_device_block.py``.
 * Eligibility equals JAX's on counterpart agents; the learn stream follows
-  the GameSession protocol; ``device_learning`` and ``mesh`` raise; and the
-  three decisions of ``PARITY_TORCH.md`` section 14 (single-round cap, PUCT
+  the GameSession protocol; ``mesh`` raises, ``device_learning`` runs (the
+  session, ``play_device_block`` and both CLI flags); and the three decisions of ``PARITY_TORCH.md`` section 14 (single-round cap, PUCT
   gated on the session's K, K configurable).
 """
 
@@ -177,19 +177,60 @@ def test_learn_stream_follows_gamesession_protocol():
 
 
 def test_unported_options_raise():
+    """``mesh`` (ROADMAP queue 1 item 11) still raises; ``device_learning`` is
+    ported (item 10): the session and ``play_device_block`` accept it."""
     lineup = [[tag.DrunkHamster(seed=0, device="cpu"), tag.DrunkHamster(seed=1, device="cpu")]]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdt.DeviceBlockSession(lineup, device_learning=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tdt.DeviceBlockSession(lineup, mesh=object(), device="cpu")
     t = Tournament(device="cpu")
     t.add_player("a", lineup[0][0])
     t.add_player("b", lineup[0][1])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t.play_device_block(2, device_learning=True)
     with pytest.raises(NotImplementedError, match="item 11"):
         t.play_device_block(2, mesh=object())
     assert t.total_games == 0
+    dqn = tag.DQNVanilla(seed=2, minibatch=4, hidden_sizes=HID, device="cpu")
+    dqn.train()
+    np.random.seed(1)
+    (scores,) = tdt.DeviceBlockSession([[dqn, lineup[0][0]]], device_learning=True, device="cpu").play()
+    assert scores.shape == (2,) and dqn._device_replay["size"] == 10 and len(dqn.history) == 0
+    t.add_player("dqn", dqn)
+    t.play_device_block(2, device_learning=True)
+    assert t.total_games == 2 and dqn._device_replay["size"] == 10 + 10 * t.played_games["dqn"]
+
+
+def test_device_learning_keeps_learners_off_the_host_blocks():
+    """A device-learned agent must not also learn through the host block driver:
+    a learner in a lineup without a device decision is refused (JAX's assertion)."""
+    np.random.seed(2)
+    t = Tournament(min_players=2, max_players=2, device="cpu")
+    t.add_player("human", tag.Human(device="cpu"))
+    dqn = tag.DQNVanilla(seed=3, hidden_sizes=HID, device="cpu")
+    dqn.train()
+    t.add_player("dqn", dqn)
+    with pytest.raises(AssertionError, match="learner routed to a host lineup"):
+        t.play_device_block(1, device_learning=True)
+
+
+def test_cli_device_learning_flags(tmp_path):
+    """Both entry points' ``--device-learning`` at a tiny size on the CPU."""
+    from rl6nimmt_torch.cli import run as cli_run
+    from rl6nimmt_torch.experiments import simple_tournament
+
+    t = cli_run.main(["--agents", "random", "dqn", "reinforce", "acer", "--games", "4", "--block", "4",
+                      "--device-blocks", "--device-learning", "--max-players", "3", "--device", "cpu"])
+    assert t.total_games == 4
+    for name in ("dqn", "reinforce", "acer"):
+        agent = t.agents[name]
+        if t.played_games[name]:
+            assert agent.opt_state is not None
+            if name != "reinforce":
+                assert agent._device_replay["size"] > 0 and len(agent.history) == 0
+    assert t.agents["reinforce"].opt_state.count == t.played_games["reinforce"]
+    t = simple_tournament.main(["--scale", "0.001", "--mc-max", "2", "--device-blocks", "--block", "2",
+                                "--device-learning", "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
+    assert t.total_games == 7
+    d3qn = [a for n, a in t.agents.items() if n.startswith("D3QN") and t.played_games[n]]
+    assert d3qn and all(a._device_replay["size"] > 0 and len(a.history) == 0 for a in d3qn)
 
 
 # ---------------------------------------------- PARITY_TORCH.md section 14

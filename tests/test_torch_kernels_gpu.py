@@ -5,6 +5,7 @@ Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -573,3 +574,89 @@ def test_device_block_launches(K):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": want}
     scores = session.finalize()
     assert len(scores) == 12 and all((s <= 0).all() for s in scores)
+
+
+# ------------------------------------------- device learner updates, the arena
+
+
+def _learners(kind, dev):
+    from rl6nimmt_torch import agents as tag
+
+    hid = (16,)
+    if kind == "ring":
+        agents = [tag.DQNVanilla(seed=11, minibatch=8, hidden_sizes=hid, device=dev),
+                  tag.BatchedReinforceAgent(seed=12, hidden_sizes=hid, device=dev),
+                  tag.MaskedReinforceAgent(seed=13, hidden_sizes=hid, device=dev)]
+    else:
+        agents = [tag.DQN_PRBAgent(seed=31, minibatch=8, history_length=64, hidden_sizes=hid, device=dev),
+                  tag.Noisy_D3QN_PRB_NStep(seed=32, minibatch=8, n_steps=3, history_length=64, hidden_sizes=hid,
+                                           device=dev),
+                  tag.BatchedACERAgent(seed=33, hidden_sizes=hid, warmup=2, minibatch=3, device=dev)]
+    for a in agents:
+        a.train()
+    return agents
+
+
+@pytest.mark.parametrize("kind", ["ring", "per"])
+def test_device_learning_on_card_matches_host_replay(kind):
+    """Two blocks of 6 games on the card, learned on the host and on the device:
+    ring DQN and both REINFORCE variants bit for bit, PER and ACER within the
+    CPU test's tolerances, with no planner's replay waiting for the card."""
+    from rl6nimmt_torch.agents.dqn import tree_leaves
+    from rl6nimmt_torch.runtime import device_learn as dl
+    from rl6nimmt_torch.runtime.device_tournament import DeviceBlockSession
+
+    dev = _cuda()
+    runs = {}
+    for device_learning in (False, True):
+        agents = _learners(kind, dev)
+        np.random.seed(77)
+        originals = {p: p.dispatch for p in (dl.DQNPlanner, dl.ACERPlanner, dl.ReinforcePlanner)}
+
+        def unsynced(dispatch):
+            def run(self):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return dispatch(self)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return run
+
+        for p, d in originals.items():
+            p.dispatch = unsynced(d)
+        try:
+            for _ in range(2):
+                DeviceBlockSession([list(agents)] * 6, device_learning=device_learning).play()
+        finally:
+            for p, d in originals.items():
+                p.dispatch = d
+        runs[device_learning] = agents
+    for h, d in zip(runs[False], runs[True]):
+        assert h.opt_state.count == d.opt_state.count > 0
+        tol = ({"rtol": 2e-2, "atol": 1e-4} if type(h).__name__ == "BatchedACERAgent"
+               else {"rtol": 1e-4, "atol": 1e-6} if kind == "per" else {"rtol": 0.0, "atol": 0.0})
+        for x, y in zip(tree_leaves(h.params), tree_leaves(d.params)):
+            torch.testing.assert_close(y, x, **tol)
+
+
+def test_arena_launches_and_card_equals_cpu():
+    """``play_match`` launches K2 once and K1 once a turn, and the card plays
+    the CPU's games on one injected noise."""
+    from rl6nimmt_torch import agents as tag
+    from rl6nimmt_torch.runtime import play_match, seat_policy_of
+    from rl6nimmt_torch.runtime.arena import ArenaNoise, draw_seat
+
+    dev = _cuda()
+    agents = [tag.DrunkHamster(seed=0, device=dev), tag.Noisy_D3QN_PRB_NStep(seed=1, device=dev),
+              tag.BatchedACERAgent(seed=2, device=dev), tag.BatchedReinforceAgent(seed=3, device=dev)]
+    for lineup in (agents, agents[2:]):
+        _build.reset_launches()
+        scores = play_match(lineup, 4096, seed=5, device=dev)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10}
+        assert scores.shape == (4096, len(lineup)) and (scores <= 0).all()
+    gen = torch.Generator().manual_seed(6)
+    noise = ArenaNoise(deal_seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
+                       turns=[[draw_seat(seat_policy_of(a)[0], gen, 64, 10) for a in agents] for _ in range(10)])
+    np.testing.assert_array_equal(play_match(agents, 64, device=dev, noise=noise),
+                                  play_match(agents, 64, device="cpu", noise=noise))

@@ -1,11 +1,12 @@
-"""JAX's device-block randomness rebuilt as the port's noise tensors (a helper
-of the port's parity tests, not a test module).
+"""JAX's device-block and arena randomness rebuilt as the port's noise tensors
+(a helper of the port's parity tests, not a test module).
 
 The JAX block draws everything from per-seat keys: ``split(k_dec, (G, P))``
 each turn.  A search seat's decision splits its key round by round; a
 learner seat takes ``fold_in(key, 1..3)``.  These functions replay those
 draws with ``jax.random`` and hand them over as ``DecisionNoise`` and
-``LearnerNoise`` tensors, jitted once per shape.
+``LearnerNoise`` tensors, jitted once per shape; :func:`arena_noise` replays
+a ``play_match`` (one key a seat and turn) as an ``ArenaNoise``.
 """
 
 import functools
@@ -87,3 +88,45 @@ def search_noise(keys, n_rounds, K, n, P):
                                  uniform=torch.from_numpy(np.ascontiguousarray(uniform))))
     random = torch.from_numpy(np.array(_random_fn(jax.random.wrap_key_data(cur))))
     return DecisionNoise(rounds=rounds, random=random)
+
+
+def arena_noise(jpolicies, num_games, seed):
+    """JAX's ``play_match(..., seed)`` randomness as the port's ArenaNoise: the
+    dealt start (``key, deal_key = split(key)``, one ``deal`` a game from
+    ``split(deal_key, G)``), then per turn ``key, *seat_keys = split(key, P +
+    1)`` and per seat its draws -- a random seat's ``uniform(key, (G,))``, a
+    policy seat's ``gumbel(key, (G, H))`` (``jax.random.categorical``), a DQN
+    seat's ``noise_key, eps_key, rand_key = split(key, 3)``: the noisy net's
+    ``draw_mlp_noise(spec, noise_key)``, shared by the G games, or
+    epsilon-greedy's ``uniform(eps_key, (G,))`` and ``uniform(rand_key, (G,))``."""
+    from rl6nimmt_tpu.engine.env import deal as jdeal
+    from rl6nimmt_tpu.engine.state import EnvConfig as JEnvConfig
+    from rl6nimmt_torch.engine import EnvState
+    from rl6nimmt_torch.runtime.arena import ArenaNoise, SeatDraws
+
+    P, G = len(jpolicies), num_games
+    cfg = JEnvConfig(num_players=P)
+    t = lambda x: torch.from_numpy(np.array(x))
+    key = jax.random.key(seed)
+    key, deal_key = jax.random.split(key)
+    js = jax.vmap(lambda k: jdeal(cfg, k))(jax.random.split(deal_key, G))
+    state = EnvState(*(t(getattr(js, f)) for f in ("board", "row_len", "hands", "hands_sorted", "scores", "turn")))
+    turns = []
+    for _ in range(cfg.max_turns):
+        key, *seat_keys = jax.random.split(key, P + 1)
+        draws = []
+        for pol, k in zip(jpolicies, seat_keys):
+            if pol.kind == "random":
+                draws.append(SeatDraws(u=t(jax.random.uniform(k, (G,)))))
+            elif pol.kind == "policy":
+                draws.append(SeatDraws(gumbel=t(jax.random.gumbel(k, (G, cfg.hand_size)))))
+            else:
+                noise_key, eps_key, rand_key = jax.random.split(k, 3)
+                if pol.dqn_cfg.noisy:
+                    draws.append(SeatDraws(q=[{n: t(v) for n, v in layer.items()}
+                                              for layer in jdraw_mlp_noise(pol.spec, noise_key)]))
+                else:
+                    draws.append(SeatDraws(explore=t(jax.random.uniform(eps_key, (G,))),
+                                           pick=t(jax.random.uniform(rand_key, (G,)))))
+        turns.append(draws)
+    return ArenaNoise(deal_seed=0, turns=turns, state=state)
