@@ -103,13 +103,27 @@ process per source), then:
    launch K2 once and K1 ten times and nothing else, every game's penalties
    <= 0; their games/s; the four-seat match on the card and on the CPU on one
    injected noise with equal scores; K1 and K2 against their twins at the
-   arena's shapes.
+   arena's shapes;
+11. drives data parallel (``parallel/mesh.py``) and the host extras: (a) NCCL at
+   world size 1 in this process, the DP REINFORCE step (the (100, 100) net), the
+   DP flagship cycle in modes engine, kernel and insert and the DP ACER cycle at
+   G=4096, each -- with every counter at 0 just before the DP path -- equal to its
+   plain step bit for bit and launching its K1/K2/K4/K5 counts a step; their
+   env-steps/s beside the plain steps' (in turns), the all-reduces and bytes an
+   update and one all-reduce's time; (b) two gloo ranks spawned on the one card:
+   2-rank DQN and ACER updates against one rank on the concatenated minibatch,
+   params bit-identical across ranks after a DP DQN cycle (insert, 2 x 2048) and
+   a DP REINFORCE step (2 x 2048), the 1-rank mesh equal to the plain steps, K1/K2
+   and K5 against their twins at 2048 games; (c) the sharded device block equal
+   to the unsharded one; (d) ``play_callback_game`` with a scripted human (K2
+   once, K1 ten times) and ``train_selfplay --algo dqn --steps 2 --save`` reloaded
+   bit for bit.
 
-Prints the ``search``, ``learners``, ``tournament`` and ``arena`` JSON lines, one JSON line of
-kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
+Prints the ``search``, ``learners``, ``tournament``, ``arena`` and ``dp`` JSON lines, one JSON line
+of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
 K2's rows their launches on the search, the learners', the tournament's and the
-arena's path), the
+arena's path, and K1's row-major, K2's, K4's and K5's on the DP path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -182,6 +196,9 @@ TOURNAMENT_BLOCK = 32
 ARENA_G = 4096
 ARENA_REPS = 3             # timed matches a lineup (after the counted one)
 ARENA_CHECK_G = 64         # the card against the CPU on one injected noise
+DP_STEPS = 2               # phase 11: steps or cycles of each DP arm on the counted path (and of its plain twin)
+DP_RATE_STEPS = 3          # timed steps of each arm, DP and plain, for the rates
+DP_G2 = 2048               # games a rank on the two gloo ranks sharing the card
 
 # Peak rates of one H100 SXM (NVIDIA's published figures): HBM
 # bytes/s and float32 operations/s outside the tensor cores.  Integer work is
@@ -981,6 +998,282 @@ def arena_phase(dev, card):
     return {"matches": matches, "card_vs_cpu_games": ARENA_CHECK_G, "card": card}, path, errs
 
 
+def dp_arms(cfg, dev):
+    """Phase 11(a)'s arms: ``{name: (fresh_state, make_step, updates)}``; a step
+    is ``make_step(mesh)`` (the plain step for ``mesh=None``), called as
+    ``step(state, generator) -> (state, metrics)``.  REINFORCE (G, the (100,
+    100) net, Adam 1e-3), the flagship DQN cycle in modes engine, kernel and
+    insert (G, PER 200,000 or the kd planes, LEARN_ITERS updates) and ACER at
+    ``bench_trainable.py``'s widths."""
+    from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_map
+    from rl6nimmt_torch.buffers import per_init, per_init_kd, seq_init
+    from rl6nimmt_torch.experiments import trainable_bench as tb
+    from rl6nimmt_torch.nets import MLPSpec, mlp_init
+    from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS
+    from rl6nimmt_torch.parallel import make_dp_acer_step, make_dp_dqn_step, make_dp_reinforce_step
+    from rl6nimmt_torch.runtime import vector
+
+    adam = Adam(1e-3)
+    init = lambda spec, seed: mlp_init(torch.Generator(device=dev).manual_seed(seed), spec, dev)
+    rspec = MLPSpec(cfg.state_length + 1, hidden_sizes=tb.HIDDEN, head_sizes=(1,))
+    aspec = MLPSpec(cfg.state_length + 1, hidden_sizes=tb.HIDDEN, head_sizes=(1, 1))
+    dqn = DQNConfig(**FLAGSHIP)
+    qspec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+
+    def reinforce(mesh):
+        fn = vector.make_reinforce_train_step(cfg, rspec, adam, G, device=dev) if mesh is None else \
+            make_dp_reinforce_step(cfg, rspec, adam, G, mesh)
+        return lambda st, g: (lambda p, o, m: ((p, o), m))(*fn(*st, g))
+
+    def dqn_cycle(mode):
+        kw = dict(learn_iters=LEARN_ITERS, kernel_act_rollout=mode == "kernel", kernel_insert=mode == "insert")
+
+        def make(mesh):
+            fn = vector.make_dqn_selfplay_step(cfg, dqn, adam, G, device=dev, **kw) if mesh is None else \
+                make_dp_dqn_step(cfg, dqn, adam, G, mesh, **kw)
+            return lambda st, g: (lambda p, t, o, b, m: ((p, t, o, b), m))(*fn(*st, g, 0.0))
+
+        def fresh():
+            p = init(qspec, 31)
+            buf = per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev) if mode == "insert" else \
+                per_init(PER_CAPACITY, vector.dqn_replay_example(cfg), device=dev)
+            return p, tree_map(torch.clone, p), adam.init(p), buf
+        return fresh, make
+
+    def acer(mesh):
+        kw = dict(minibatch=tb.ACER_MINIBATCH, on_policy_sequences=tb.ACER_ON_POLICY)
+        fn = vector.make_acer_selfplay_step(cfg, aspec, adam, G, device=dev, **kw) if mesh is None else \
+            make_dp_acer_step(cfg, aspec, adam, G, mesh, **kw)
+        return lambda st, g: (lambda p, o, b, m: ((p, o, b), m))(*fn(*st, g))
+
+    arms = {"reinforce": ((lambda: (init(rspec, 32), adam.init(init(rspec, 32)))), reinforce, 1)}
+    for mode in ("engine", "kernel", "insert"):
+        fresh, make = dqn_cycle(mode)
+        arms[f"dqn_{mode}"] = (fresh, make, LEARN_ITERS)
+    arms["acer"] = ((lambda: (init(aspec, 33), adam.init(init(aspec, 33)),
+                              seq_init(tb.ACER_CAPACITY, cfg.max_turns, vector.acer_sequence_example(cfg),
+                                       device=dev))), acer, 2)
+    return arms
+
+
+def dp_phase(dev, card, k4_args):
+    """Phase 11, data parallel (``parallel/mesh.py``) and the host extras on the card.
+
+    (a) NCCL at world size 1 in this process: every arm of :func:`dp_arms`
+    runs DP_STEPS plain steps, then -- every counter at 0 just before the DP
+    path -- DP_STEPS DP steps from the same state and generator; each DP arm
+    must end bit-identical to its plain twin and launch exactly its K1/K2/K4/
+    K5 counts a step; then both rates (DP_RATE_STEPS timed steps each, host
+    clock after ``torch.cuda.synchronize()``, plain, DP, DP, plain), the
+    all-reduces an update and the time of one all-reduce of the flagship's gradient.
+    (b) two gloo ranks spawned on the one card (``runtime/dp_check.py``): a
+    2-rank DQN learn step and ACER train step against one rank on the
+    concatenated minibatch, bit-identical params after a DP DQN cycle (insert
+    mode, 2 x DP_G2 games) and a DP REINFORCE step (2 x DP_G2) on meshes of 1
+    and 2 ranks, the 1-rank mesh equal to the plain steps; K1/K2 and K5 against
+    their twins at DP_G2.  (c) the sharded device block and a tournament's
+    ``play_device_block`` over both meshes equal to the unsharded block.
+    (d) one ``play_callback_game`` with a scripted human (K2 once, K1 ten
+    times) and one ``train_selfplay --algo dqn --steps 2 --save`` and its reload.
+    Returns the ``dp`` line, the DP path's launches and the twin errors."""
+    import builtins
+    import contextlib
+    import io
+    import re
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.nets import mlp_init, params_to_numpy
+    from rl6nimmt_torch.agents.dqn import DQNConfig, q_network_spec
+    from rl6nimmt_torch.nets import MLPSpec
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.ops.act_rollout_check import insert_twin_agreement
+    from rl6nimmt_torch.parallel import make_mesh
+    from rl6nimmt_torch.parallel.launch import check_backend, spawn
+    from rl6nimmt_torch.runtime.dp_check import allreduce_ms, run_checks, trees_equal
+    from rl6nimmt_torch.utils.ops import ALLREDUCES, leaves_with_paths
+
+    leaf_list = lambda tree: [x for _, x in leaves_with_paths(tree)]
+    cfg = EnvConfig(4)
+    line = {"card": card}
+    # ---- (a) NCCL at world size 1 ----
+    check_backend("nccl", 1)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        arms = dp_arms(cfg, dev)
+        plain, counts = {}, {}
+        for name, (fresh, make, _) in arms.items():
+            step, st, gen = make(None), fresh(), torch.Generator(device=dev).manual_seed(40)
+            before = dict(_build.LAUNCHES)
+            for _ in range(DP_STEPS):
+                st, m = step(st, gen)
+            torch.cuda.synchronize()
+            counts[name] = {k: (v - before[k]) / DP_STEPS for k, v in _build.LAUNCHES.items() if v != before[k]}
+            plain[name] = (st, m)
+        dp_steps = {name: make(mesh) for name, (_, make, _) in arms.items()}
+        starts = {name: fresh() for name, (fresh, _, _) in arms.items()}
+        reduces, dp_counts, dp_out = {}, {}, {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        # ---- the DP path: every counter starts at 0 here ----
+        for name, step in dp_steps.items():
+            st, gen = starts[name], torch.Generator(device=dev).manual_seed(40)
+            before, r0 = dict(_build.LAUNCHES), dict(ALLREDUCES)
+            for _ in range(DP_STEPS):
+                st, m = step(st, gen)
+            torch.cuda.synchronize()
+            dp_counts[name] = {k: (v - before[k]) / DP_STEPS for k, v in _build.LAUNCHES.items() if v != before[k]}
+            updates = DP_STEPS * arms[name][2]
+            reduces[name] = {"allreduces_per_update": (ALLREDUCES["calls"] - r0["calls"]) / updates,
+                             "allreduce_bytes_per_update": (ALLREDUCES["bytes"] - r0["bytes"]) / updates}
+            dp_out[name] = (st, m)
+        dp_path = dict(_build.LAUNCHES)
+        # ---- end of the DP path ----
+        arm_lines = {}
+        for name, step in dp_steps.items():
+            if dp_counts[name] != counts[name]:
+                raise AssertionError(f"DP {name} launched {dp_counts[name]} a step, the plain step {counts[name]}")
+            if not trees_equal(dp_out[name], plain[name]):
+                raise AssertionError(f"DP {name} at world size 1 differs from the plain step")
+            plain_step = arms[name][1](None)
+            runs = {"dp": (step, dp_out[name][0]), "plain": (plain_step, plain[name][0])}
+            gen = torch.Generator(device=dev).manual_seed(41)
+            secs = {"dp": [], "plain": []}
+            for which in ("plain", "dp", "dp", "plain"):       # in turns: the host's speed drifts
+                fn, st = runs[which]
+                secs[which].append(host_seconds(lambda: fn(st, gen), DP_RATE_STEPS))
+            sec_dp, sec_plain = sum(secs["dp"]) / 2, sum(secs["plain"]) / 2
+            steps_per = G * cfg.max_turns
+            arm_lines[name] = {"equal_to_plain": True, "launches_per_step": dp_counts[name],
+                               "env_steps_per_s": steps_per / sec_dp, "plain_env_steps_per_s": steps_per / sec_plain,
+                               "step_s": secs, **reduces[name]}
+            log(f"[11] NCCL world 1 {name}: == plain step bit for bit; launches a step {dp_counts[name]}; "
+                f"{steps_per / sec_dp:.0f} env-steps/s (plain {steps_per / sec_plain:.0f}); "
+                f"{reduces[name]['allreduces_per_update']:.3f} all-reduces, "
+                f"{reduces[name]['allreduce_bytes_per_update']:.0f} B an update")
+        floats = sum(x.numel() for x in leaf_list(dp_out["dqn_engine"][0][0])) + 1
+        nccl_ms = allreduce_ms(mesh, dev, floats)
+        line["nccl_world1"] = {"backend": dist.get_backend(), "games": G, "steps": DP_STEPS, "arms": arm_lines,
+                               "allreduce_ms": nccl_ms, "allreduce_floats": floats}
+        log(f"[11] NCCL world 1: one all-reduce of {floats} floats {nccl_ms:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) and (c): two gloo ranks sharing the card ----
+    rng = np.random.RandomState(0)
+    learn = {}
+    for i, (name, kw) in enumerate({"vanilla": dict(hidden_sizes=(16,)),
+                                    "d3qn_prb": dict(double=True, dueling=True, per=True,
+                                                     hidden_sizes=(16,))}.items()):
+        spec = q_network_spec(DQNConfig(**kw), cfg.state_length, cfg.num_actions)
+        params = lambda seed: params_to_numpy(mlp_init(torch.Generator().manual_seed(seed), spec, "cpu"))
+        n = 64
+        learn[name] = {"cfg": kw, "params": params(50 + 2 * i), "target": params(51 + 2 * i), "batch": {
+            "state": rng.randn(n, 47).astype(np.float32), "action": rng.randint(0, 104, n).astype(np.int32),
+            "reward": rng.randn(n).astype(np.float32), "next_state": rng.randn(n, 47).astype(np.float32),
+            "done": (rng.random(n) < 0.3).astype(np.float32), "weights": rng.random(n).astype(np.float32) + 0.5}}
+    B, T, H = 16, 10, 10
+    cards = np.sort(np.stack([rng.choice(104, size=H, replace=False) for _ in range(B * T)]), axis=1)
+    logits = rng.randn(B, T, H).astype(np.float32)
+    acer_batch = {"state": rng.randn(B, T, 47).astype(np.float32), "legal_cards": cards.reshape(B, T, H).astype(np.int32),
+                  "log_probs": (logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32),
+                  "action_id": rng.randint(0, H, (B, T)).astype(np.int32), "reward": rng.randn(B, T).astype(np.float32),
+                  "done": (rng.random((B, T)) < 0.1).astype(np.float32), "length": np.full((B,), T, np.int32)}
+    acer_spec = MLPSpec(input_size=48, hidden_sizes=(16,), head_sizes=(1, 1))
+    inputs = {"dqn_learn": learn,
+              "acer_train": {"params": params_to_numpy(mlp_init(torch.Generator().manual_seed(60), acer_spec, "cpu")),
+                             "batch": acer_batch},
+              "dqn_cycle": {"cfg": FLAGSHIP, "games": DP_G2, "learn_iters": LEARN_ITERS, "capacity": KD_CAPACITY,
+                            "mode": "insert"},
+              "reinforce_games": DP_G2, "reinforce_hidden": (100, 100), "block_games": 8,
+              "allreduce_floats": sum(p.numel() for p in leaf_list(mlp_init(
+                  torch.Generator().manual_seed(0), q_network_spec(DQNConfig(**FLAGSHIP), 47, 104), "cpu"))) + 1}
+    t0 = time.perf_counter()
+    ranks = spawn(run_checks, 2, inputs, "cuda", backend="gloo", timeout=600)[0]
+    gloo_s = time.perf_counter() - t0
+    for key, ok in {**{f"replicated {k}": v for k, v in ranks["replicated"].items()},
+                    **{f"rerun {k}": v for k, v in ranks["rerun"].items()},
+                    **{f"world-size-1 {k}": v for k, v in ranks["size1"].items()},
+                    **{f"pmean {k}": v["identity"] and v["max_err"] <= 1e-6 for k, v in ranks["pmean"].items()}}.items():
+        if not ok:
+            raise AssertionError(f"two gloo ranks on the card: {key} failed")
+    learn_err = 0.0
+    for name in learn:
+        one, two = ranks["learn"][(name, "plain")], ranks["learn"][(name, "n2")]
+        for a, b in zip(leaf_list(two["params"]) + leaf_list(two["adam"]["mu"]),
+                        leaf_list(one["params"]) + leaf_list(one["adam"]["mu"])):
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6, err_msg=f"2-rank {name} learn step")
+            learn_err = max(learn_err, float(np.abs(a - b).max()))
+        np.testing.assert_allclose(two["loss"], one["loss"], rtol=1e-6)
+    one, two = ranks["acer"]["plain"], ranks["acer"]["n2"]
+    np.testing.assert_allclose(two["losses"], one["losses"], atol=1e-6, rtol=1e-5)
+    for a, b in zip(leaf_list(two["params"]), leaf_list(one["params"])):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6, err_msg="2-rank ACER train step")
+    blocks = ranks["block"]
+    if not (np.array_equal(blocks["n2"], blocks["n1"]) and np.array_equal(blocks["n1"], blocks["fn"])
+            and ranks["tournament"]["n2"] == ranks["tournament"]["n1"]):
+        raise AssertionError(f"the sharded block differs from the unsharded one: {blocks}")
+    rank0 = {k: v for k, v in ranks["launches"].items() if v}
+    if not all(rank0.get(k) for k in ("deal_games", "resolve_turn", "act_insert")):
+        raise AssertionError(f"rank 0 of the gloo pair did not launch K1, K2 and K5: {rank0}")
+    errs = k1_k2_against_twins(cfg, [DP_G2], 101, dev)
+    k5_agree, _, errs["act_insert"] = insert_twin_agreement(cfg, DP_G2, HIDDEN, KD_CAPACITY, KD_PTR, 102, k4_args)
+    if k5_agree < 0.999 or errs["act_insert"] != 0.0:
+        raise AssertionError(f"K5 vs twin at G={DP_G2}: agreement {k5_agree}, error {errs['act_insert']}")
+    line["gloo_2ranks"] = {"seconds": gloo_s, "replicated": ranks["replicated"], "rerun": ranks["rerun"],
+                           "world_size_1_equal": ranks["size1"], "dqn_cycle_allreduces": ranks["allreduces"],
+                           "learn_max_abs_diff": learn_err, "block_games_equal": True, "rank0_launches": rank0,
+                           "allreduce_ms": ranks["allreduce_ms"], "dqn_cycle_s": ranks["cycle_s"],
+                           "allreduce_floats": inputs["allreduce_floats"]}
+    log(f"[11] two gloo ranks on the card ({gloo_s:.1f} s): 2-rank DQN and ACER updates == one rank on the global "
+        f"batch (max |diff| {learn_err:.3g}); params bit-identical across ranks after the DP DQN cycle (insert, "
+        f"2 x {DP_G2}) and DP REINFORCE (2 x {DP_G2}); the sharded block == the unsharded one; rank 0 launched {rank0}; "
+        f"one all-reduce of {inputs['allreduce_floats']} floats {ranks['allreduce_ms']} ms; DQN cycles {ranks['cycle_s']} s")
+
+    # ---- (d) the host extras on the card ----
+    from rl6nimmt_torch.experiments import train_selfplay
+    from rl6nimmt_torch.runtime.callback_human import play_callback_game
+    from rl6nimmt_torch.utils import load_params
+
+    prompts, real_input = [], builtins.input
+    builtins.input = lambda prompt="": (prompts.append(prompt),
+                                        re.search(r"cards:\s*((?:\s*\d+)+)", prompt).group(1).split()[0])[1]
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with contextlib.redirect_stdout(out):
+            scores = play_callback_game(["random", "random", "random"], seed=7, device=dev)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    finally:
+        builtins.input = real_input
+    if got != {"deal_games": 1, "resolve_turn": 10} or len(prompts) != 10 or out.getvalue().count("Board:") != 10 \
+            or not (scores <= 0).all():
+        raise AssertionError(f"callback game: launches {got}, {len(prompts)} prompts, scores {scores}")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        path = os.path.join(tmp, "dqn.npz")
+        t0 = time.perf_counter()
+        params = train_selfplay.run(["--algo", "dqn", "--steps", "2", "--save", path])
+        train_s = time.perf_counter() - t0
+        reloaded = load_params(path, params)
+        if not trees_equal(params, reloaded) or not all(torch.isfinite(x).all() for x in leaf_list(params)):
+            raise AssertionError("train_selfplay --save: the reloaded params differ")
+    line["host_extras"] = {"callback_launches": got, "callback_scores": scores.tolist(),
+                           "train_selfplay_dqn_2_steps_s": train_s}
+    log(f"[11] callback game (3 random seats): launches {got}, scores {scores.tolist()}; train_selfplay --algo dqn "
+        f"--steps 2 --save ({train_s:.1f} s) reloads bit for bit")
+    return line, dp_path, errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
@@ -1463,6 +1756,19 @@ def main():
             row["arena_path_launches"] = arena_launches[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], arena_errs[row["name"]])
     print(json.dumps({"arena": arena_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 11
+    t0 = time.perf_counter()
+    dp_line, dp_launches, dp_errs = dp_phase(dev, card, k4_args)
+    dp_line["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_insert"):
+            row["dp_path_launches"] = dp_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], dp_errs.get(row["name"], 0.0))
+    missing = [k for k in ("resolve_turn", "deal_games", "act_rollout", "act_insert") if not dp_launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the DP path: {missing}")
+    print(json.dumps({"dp": dp_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -29,9 +29,9 @@ import torch
 
 from ..buffers.host import HostSequentialHistory
 from ..nets import MLPSpec, mlp_init
-from ..utils.ops import onehot_select
+from ..utils.ops import onehot_select, pmean_fused
 from .base import Agent, pad_cards
-from .dqn import grad_leaves, optimizer_step
+from .dqn import grad_leaves, grads_of, optimizer_apply
 from .reinforce import action_in_input_heads, sample_index
 
 LOG_EPSILON = -20.0
@@ -139,18 +139,22 @@ def make_acer_train_step(
     aligned episode (step t holds exactly ``H - t`` live cards in the leading
     slots, always true of the self-play rollouts) and runs each step's heads on
     those rows only; the loss equals the default's to float round-off.
-    ``axis_name`` (data parallel) is ROADMAP queue 1 item 11.
+    With ``axis_name`` (a process group or a tuple of them) the gradients and
+    the three losses are averaged over the ranks in one all-reduce before
+    the optimizer applies them.
     """
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
     heads = packed_heads if packed_rows else actor_critic_heads
 
     def train(params, opt_state, batch):
         leaves, live = grad_leaves(params)
         log_probs_now, q = heads(spec, live, batch["state"], batch["legal_cards"])
         al, cl, crl = acer_losses(log_probs_now, q, batch, gamma, truncate, critic_weight)
-        params, opt_state = optimizer_step(optimizer, params, opt_state, actor_weight * al + cl + crl, leaves)
-        return params, opt_state, (al.detach(), cl.detach(), crl.detach())
+        grads = grads_of(actor_weight * al + cl + crl, leaves, params)
+        losses = (al.detach(), cl.detach(), crl.detach())
+        if axis_name is not None:
+            grads, losses = pmean_fused((grads, losses), axis_name)
+        params, opt_state = optimizer_apply(optimizer, params, opt_state, grads)
+        return params, opt_state, losses
 
     return train
 

@@ -42,7 +42,7 @@ import torch
 
 from ..buffers.host import HostHistory, HostPriorityBuffer
 from ..nets import MLPSpec, draw_mlp_noise, dueling_apply, mlp_apply, mlp_init
-from ..utils.ops import onehot_select
+from ..utils.ops import onehot_select, pmean_fused
 from .base import Agent
 
 MASK_VALUE = -1e8
@@ -194,7 +194,7 @@ def optimizer_step(optimizer, params, opt_state, loss: torch.Tensor, leaves):
 # ------------------------------------------------------------------- learner
 
 
-def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float):
+def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float, axis_name=None):
     """Build the Bellman update.
 
     ``learn_step(params, target_params, opt_state, batch, do_soft_update,
@@ -203,6 +203,12 @@ def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float
     weights`` with a leading minibatch axis.  ``noise`` is required for
     noisy configs (:func:`learn_noise`).  Returned params are new tensors;
     the inputs are not modified.
+
+    With ``axis_name`` (a process group, or a tuple of them: the groups of a
+    :class:`~..parallel.mesh.Mesh`) the gradients and the loss are averaged
+    over the ranks in one all-reduce before the optimizer applies them
+    (:func:`~..utils.ops.pmean_fused`); ``abs_err`` (the PER priorities)
+    stays this rank's own, as in JAX.
     """
 
     def bellman_target(params, target_params, batch, noise_tgt):
@@ -232,14 +238,16 @@ def make_learn_step(cfg: DQNConfig, spec: MLPSpec, optimizer: Adam, gamma: float
             loss = torch.mean(batch["weights"] * err ** 2)
         else:
             loss = torch.mean(err ** 2)
-        new_params, opt_state = optimizer_apply(optimizer, params, opt_state, grads_of(loss, leaves, params))
+        grads, loss = grads_of(loss, leaves, params), loss.detach()
+        if axis_name is not None:
+            grads, loss = pmean_fused((grads, loss), axis_name)
+        new_params, opt_state = optimizer_apply(optimizer, params, opt_state, grads)
         with torch.no_grad():
             if cfg.double and do_soft_update:
                 tau = cfg.tau
                 target_params = tree_map(lambda t, l: tau * l + (1.0 - tau) * t,
                                          target_params, new_params)
-        return (new_params, target_params, opt_state, loss.detach(),
-                err.detach().abs(), q_target)
+        return new_params, target_params, opt_state, loss, err.detach().abs(), q_target
 
     return learn_step
 

@@ -10,6 +10,7 @@ from .env import (
     legal_mask,
     observe,
     row_points,
+    sorted_hands,
     state_from_deal,
     step,
 )
@@ -32,6 +33,7 @@ __all__ = [
     "legal_mask",
     "observe",
     "row_points",
+    "sorted_hands",
     "state_from_deal",
     "step",
 ]

@@ -186,6 +186,17 @@ def shift_hands(hands_sorted: torch.Tensor, actions: torch.Tensor) -> torch.Tens
 # ---------------------------------------------------------------- observations
 
 
+def sorted_hands(cfg: EnvConfig, hands: torch.Tensor) -> torch.Tensor:
+    """Ascending card ids per player, -1 padded: ``int32[..., P, hand_size]``
+    from the card-membership mask ``bool[..., P, C]`` (the reference's
+    sorted-hand observation block, env.py:206-212).  The held cards' ids,
+    non-held lanes pushed past them, are the ascending hand."""
+    C, H = hands.shape[-1], cfg.hand_size
+    ids = torch.where(hands, torch.arange(C, device=hands.device), C)
+    first = torch.sort(ids, dim=-1).values[..., :H]
+    return torch.where(first == C, -1, first).to(torch.int32)
+
+
 def game_features(cfg: EnvConfig, board, row_len) -> torch.Tensor:
     """The per-game observation block shared by every seat: ``int32[G, S-H]``.
 

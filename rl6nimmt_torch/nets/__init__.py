@@ -1,5 +1,6 @@
-"""Functional nets (port of ``rl6nimmt_tpu.nets``)."""
+"""Functional nets (port of ``rl6nimmt_tpu.nets``) and their converters from JAX trees."""
 
+from .cnn import CNNSpec, cnn_apply, cnn_init, cnn_params_from_jax
 from .convert import adam_state_from_jax, noise_from_jax, params_from_jax, params_to_numpy
 from .mlp import (
     MLPSpec,
@@ -16,8 +17,12 @@ from .mlp import (
 from .normalize import normalize_state
 
 __all__ = [
+    "CNNSpec",
     "MLPSpec",
     "adam_state_from_jax",
+    "cnn_apply",
+    "cnn_init",
+    "cnn_params_from_jax",
     "draw_mlp_noise",
     "dueling_apply",
     "linear_apply",

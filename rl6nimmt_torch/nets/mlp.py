@@ -68,10 +68,24 @@ def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def noisy_linear_init(generator, in_dim: int, out_dim: int, sigma_init: float = 0.5,
-                      device="cuda") -> dict:
-    """Factorized noisy layer: sigma starts at ``sigma_init / sqrt(in)``."""
+                      device="cuda", factorized: bool = True) -> dict:
+    """Noisy layer parameters.
+
+    The factorized layer's sigma starts at ``sigma_init / sqrt(in)``
+    (reference nets.py:42-49); the independent layer's is ``sigma_init``
+    itself, and its weights are drawn again, uniform with bound
+    ``sqrt(3 / in)`` (nets.py:13-25).
+    """
     params = linear_init(generator, in_dim, out_dim, device)
-    sigma0 = sigma_init / math.sqrt(in_dim)
+    if factorized:
+        sigma0 = sigma_init / math.sqrt(in_dim)
+    else:
+        sigma0 = sigma_init
+        bound = math.sqrt(3.0 / in_dim)
+        dev = params["w"].device
+        u = lambda *shape: ((torch.rand(shape, generator=generator, device=generator.device) * 2 - 1)
+                            * bound).to(dev)
+        params["w"], params["b"] = u(in_dim, out_dim), u(out_dim)
     params["sigma_w"] = torch.full((in_dim, out_dim), sigma0, device=params["w"].device)
     params["sigma_b"] = torch.full((out_dim,), sigma0, device=params["w"].device)
     return params
@@ -91,10 +105,18 @@ def _factorized_noise(generator: torch.Generator, in_dim: int, out_dim: int,
     }
 
 
-def noisy_linear_apply(params: dict, x: torch.Tensor, noise: Optional[dict] = None) -> torch.Tensor:
-    """Noisy forward; ``noise=None`` runs the mean network."""
+def noisy_linear_apply(params: dict, x: torch.Tensor, noise: Optional[dict] = None,
+                       factorized: bool = True) -> torch.Tensor:
+    """Noisy forward; ``noise=None`` runs the mean network.
+
+    ``noise`` is a factorized pair (:func:`_factorized_noise`), or with
+    ``factorized=False`` an independent standard-normal draw ``{"w" [in, out],
+    "b" [out]}``: ``w + sigma_w * w_noise``, ``b + sigma_b * b_noise``.
+    """
     if noise is None:
         return linear_apply(params, x)
+    if not factorized:
+        return x @ (params["w"] + params["sigma_w"] * noise["w"]) + (params["b"] + params["sigma_b"] * noise["b"])
     w_eff = params["w"] + params["sigma_w"] * (noise["eps_in"] * noise["eps_out"])
     b_eff = params["b"] + params["sigma_b"] * noise["eps_out"][..., 0, :]
     return x @ w_eff + b_eff

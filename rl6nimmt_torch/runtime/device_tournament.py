@@ -54,6 +54,7 @@ round (default 256 lanes a seat), and the unpadded game axis.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -105,14 +106,6 @@ DEFAULT_BATCH = 8
 # larger one runs several rounds of this width.
 SINGLE_ROUND_CAP = 256
 NET_KINDS = (KIND_POLICY, KIND_PUCT, KIND_PUCT_UNIFORM)
-
-
-def check_unported(mesh=None) -> None:
-    """Raise for the option whose JAX machinery is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding a block's games over several cards is ROADMAP queue 1 item 11 (data parallel), "
-            "not ported yet")
 
 
 @dataclass(frozen=True)
@@ -203,6 +196,25 @@ def draw_block_noise(generator: torch.Generator, cfg: EnvConfig, num_games: int,
                if slot.family == "dqn" and slot.spec.noisy})
         turns.append(TurnNoise(search, learner))
     return BlockNoise(int(torch.randint(0, 2**62, (1,), generator=generator, device=gdev)), turns)
+
+
+def shard_block_noise(noise: BlockNoise, lo: int, hi: int, P: int, K: int) -> BlockNoise:
+    """The noise of games ``lo:hi`` of a block's :class:`BlockNoise`: the search
+    seats ``lo*P:hi*P`` (playout lanes ``lo*P*K:hi*P*K``) and the learner draws
+    of those games, with the block's deal seed."""
+    seats, lanes = slice(lo * P, hi * P), slice(lo * P * K, hi * P * K)
+    cut = lambda x, s, dim=0: None if x is None else x[(slice(None),) * dim + (s,)]
+    turns = []
+    for tn in noise.turns:
+        rounds = [RoundNoise(deal=cut(r.deal, seats), first=cut(r.first, seats), uniform=cut(r.uniform, lanes, 1),
+                             net=cut(r.net, lanes, 1)) for r in tn.search.rounds]
+        ln = tn.learner
+        learner = LearnerNoise(
+            sample_hand=ln.sample_hand[lo:hi], sample_card=ln.sample_card[lo:hi], explore=ln.explore[lo:hi],
+            explore_pick=ln.explore_pick[lo:hi],
+            q={slot: [{k: v[lo:hi] for k, v in layer.items()} for layer in layers] for slot, layers in ln.q.items()})
+        turns.append(TurnNoise(DecisionNoise(rounds, cut(tn.search.random, seats)), learner))
+    return BlockNoise(noise.deal_seed, turns)
 
 
 class _BlockSource:
@@ -583,10 +595,21 @@ class DeviceBlockSession:
     (:func:`seat_kind`).  A block without PUCT seats runs each decision's
     playouts in as few rounds as ``single_round_cap`` lanes a seat allow (JAX:
     one round of the budget's pow2 ceiling, uncapped).  ``bucket`` only
-    checks that it covers the games (JAX padded to it); ``mesh`` raises
-    (ROADMAP queue 1 item 11).  ``device_learning=True`` routes the learner
-    streams (DQN, ACER, both REINFORCE variants) to the device planners of
-    :mod:`.device_learn` instead of the host ``learn`` replay.
+    checks that it covers the games (JAX padded to it).  ``device_learning=True``
+    routes the learner streams (DQN, ACER, both REINFORCE variants) to the
+    device planners of :mod:`.device_learn` instead of the host ``learn``
+    replay.
+
+    ``mesh`` (a :class:`~..parallel.mesh.Mesh`, every rank of it holding the
+    same session and ``np.random`` state) shards the block's games over the
+    mesh's ranks: the games are rounded up to a multiple of the mesh's size
+    with random seats (as JAX rounded its bucket), the block's noise is drawn
+    whole on every rank (:func:`draw_block_noise`) and each rank plays its
+    contiguous slice of the games on ``mesh.device``; ``all_gather`` brings
+    back the scores, trajectories and final observations, and every rank runs
+    the same learn replay.  A mesh block draws its noise whole, a mesh-free
+    block as it needs it, so the two differ in their draws; mesh blocks of
+    every size play the same games (``PARITY_TORCH.md`` §16).
     """
 
     def __init__(
@@ -600,11 +623,15 @@ class DeviceBlockSession:
         single_round_cap: int = SINGLE_ROUND_CAP,
         device="cuda",
     ):
-        check_unported(mesh)
         assert lineups, "need at least one game"
         P = len(lineups[0])
         assert all(len(l) == P for l in lineups), "uniform player count required"
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the session's device {self.device} is not the mesh's {mesh.device}")
+            self.device = mesh.device
         self.lineups = [list(agents) for agents in lineups]
         self.batch = batch
         self.bucket = bucket
@@ -699,11 +726,41 @@ class DeviceBlockSession:
         gen = torch.Generator(device=self.device).manual_seed(int(np.random.randint(0, 2**31 - 1)))
         t1 = time.perf_counter()
         with record_function("block.play"):
-            scores, traj, final_obs = fn(inputs.params, inputs.lparams, inputs.kinds, inputs.mc_maxes,
-                                         inputs.mc_pers, inputs.c_pucts, inputs.epses, gen)
+            if self.mesh is None:
+                scores, traj, final_obs = fn(inputs.params, inputs.lparams, inputs.kinds, inputs.mc_maxes,
+                                             inputs.mc_pers, inputs.c_pucts, inputs.epses, gen)
+            else:
+                scores, traj, final_obs = self._play_sharded(inputs, gen)
         self._block = {"scores": scores, "traj": traj, "final_obs": final_obs, "families": inputs.families,
                        "t0": t0, "t1": t1}
         return self
+
+    def _play_sharded(self, inputs: BlockInputs, gen: torch.Generator):
+        """This rank's slice of the block's games on the whole block's noise,
+        then every rank's slice gathered: the block's scores, trajectory and
+        final observations for the session's games."""
+        from ..parallel.mesh import game_sharding
+
+        cfg, mesh, G, P = self.cfg, self.mesh, len(self.lineups), self.cfg.num_players
+        B = -(-G // mesh.size) * mesh.size
+        pad = lambda a: np.concatenate([a, np.zeros((B - G,) + a.shape[1:], a.dtype)])
+        kinds, mc_maxes, mc_pers = pad(inputs.kinds), pad(inputs.mc_maxes), pad(inputs.mc_pers)
+        rounds = turn_rounds(cfg, kinds, mc_maxes, mc_pers, inputs.K)
+        noise = draw_block_noise(gen, cfg, B, inputs.K, rounds, self.slots,
+                                 net=bool(np.isin(kinds, (KIND_POLICY, KIND_PUCT)).any()))
+        sharding = game_sharding(mesh)
+        lo, hi = sharding.bounds(B)
+        full = deal(cfg, noise.deal_seed, B, device=self.device)
+        state = EnvState(**{f.name: getattr(full, f.name)[lo:hi] for f in dataclasses.fields(EnvState)})
+        empty = [[None] * P for _ in range(B - G)]
+        fn = make_device_block_fn(cfg, self.spec, hi - lo, inputs.mc_ceiling, inputs.K, self.slots,
+                                  device=self.device)
+        scores, traj, final_obs = fn(
+            (inputs.params + empty)[lo:hi], (inputs.lparams + empty)[lo:hi], kinds[lo:hi], mc_maxes[lo:hi],
+            mc_pers[lo:hi], pad(inputs.c_pucts)[lo:hi], pad(inputs.epses)[lo:hi],
+            shard_block_noise(noise, lo, hi, P, inputs.K), state=state)
+        return (sharding.gather(scores)[:G], {k: sharding.gather(v, axis=1)[:, :G] for k, v in traj.items()},
+                sharding.gather(final_obs)[:G])
 
     def finalize(self) -> List[np.ndarray]:
         """Fetch the trajectory and replay every learner's ``learn`` stream per

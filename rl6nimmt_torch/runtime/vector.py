@@ -50,7 +50,7 @@ from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_roll
 from ..ops.game_kernel import deal_games, play_random_games, random_pick_words, random_picks
 from ..ops.step_kernel import resolve_turn_t
 from ..utils.device import resolve_device
-from ..utils.ops import onehot_select, uniform_index
+from ..utils.ops import onehot_select, pmean_fused, uniform_index
 from ..utils.returns import discounted_returns
 
 NEG_INF = -1e9
@@ -268,7 +268,7 @@ def make_dqn_selfplay_step(
     gamma: float = 0.99,
     learn_iters: int = 10,
     reward_lag: bool = True,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     per_aligned_capacity: Optional[int] = None,
     kernel_act_rollout: bool = False,
     feature_major: bool = False,
@@ -295,12 +295,15 @@ def make_dqn_selfplay_step(
     ``kernel_act_rollout=True`` (noisy configs with one hidden layer) plays
     the games in K4 from ``deal_seed``; the engine path otherwise.
     ``feature_major`` and ``per_aligned_capacity`` (the JAX package's TPU
-    replay layouts) and ``axis_name`` are not ported.
+    replay layouts) are not ported.
+
+    With ``axis_name`` (a process group or a tuple of them, see
+    :func:`~..parallel.mesh.make_dp_dqn_step`) every Bellman update averages
+    its gradients and loss over the ranks in one all-reduce, and the mean
+    score is averaged at the cycle's end.
     """
     T, P, G = cfg.max_turns, cfg.num_players, num_games
     n = dqn_cfg.n_steps
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
     if feature_major or per_aligned_capacity is not None:
         raise NotImplementedError("feature_major / per_aligned_capacity: TPU replay layouts "
                                   "with no GPU workload, see ROADMAP queue 1 item 1")
@@ -326,7 +329,7 @@ def make_dqn_selfplay_step(
     dev = resolve_device(device)
     spec = q_network_spec(dqn_cfg, cfg.state_length, cfg.num_actions)
     eff_spec = dataclasses.replace(spec, noisy=False)
-    learn_step = make_learn_step(dqn_cfg, spec, optimizer, gamma)
+    learn_step = make_learn_step(dqn_cfg, spec, optimizer, gamma, axis_name=axis_name)
     adv_head = 1 if dqn_cfg.dueling else 0
     play_kernel = make_act_rollout_kernel(cfg, G, hidden=dqn_cfg.hidden_sizes[0]) if kernel_act_rollout else None
 
@@ -451,8 +454,8 @@ def make_dqn_selfplay_step(
                 losses.append(loss)
         params, target_params, opt_state, buf = carry
         metrics = {
-            "loss": torch.stack(losses).mean(),
-            "mean_score": scores.to(torch.float32).mean(),
+            "loss": torch.stack(losses).mean(),     # each update's loss is averaged over the ranks already
+            "mean_score": pmean_fused(scores.to(torch.float32).mean(), axis_name),
         }
         return params, target_params, opt_state, buf, metrics
 
@@ -554,7 +557,7 @@ def make_reinforce_train_step(
     entropy_weight: float = 0.0,
     reward_lag: bool = True,
     fused_grad: bool = True,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     device="cuda",
 ):
     """Self-play + one REINFORCE update over every seat of G games.
@@ -571,11 +574,10 @@ def make_reinforce_train_step(
     forward serves the pick (on detached logits) and the loss, and the
     backward runs through the whole rollout.  ``fused_grad=False`` plays under
     ``no_grad`` and recomputes the logits inside the loss.  The two give the
-    same actions and the same loss to float round-off.  ``axis_name`` (data
-    parallel) is ROADMAP queue 1 item 11.
+    same actions and the same loss to float round-off.  With ``axis_name`` (a
+    process group or a tuple of them) the gradients, the loss and the mean
+    score are averaged over the ranks in one all-reduce before the update.
     """
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
     dev = resolve_device(device)
     G, P, T, H = num_games, cfg.num_players, cfg.max_turns, cfg.hand_size
     rollout = make_reinforce_rollout(cfg, spec, G, dev)
@@ -623,9 +625,12 @@ def make_reinforce_train_step(
             loss, scores = loss_fn(live, rnd)
         with record_function("reinforce.backward"):
             grads = grads_of(loss, leaves, params)
+        metrics = {"loss": loss.detach(), "mean_score": scores.to(torch.float32).mean()}
+        if axis_name is not None:
+            grads, metrics = pmean_fused((grads, metrics), axis_name)
         with record_function("reinforce.adam"):
             params, opt_state = optimizer_apply(optimizer, params, opt_state, grads)
-        return params, opt_state, {"loss": loss.detach(), "mean_score": scores.to(torch.float32).mean()}
+        return params, opt_state, metrics
 
     return train_step
 
@@ -707,7 +712,7 @@ def make_acer_selfplay_step(
     critic_weight: float = 1.0,
     on_policy_sequences: Optional[int] = 512,
     packed_rows: bool = False,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     device="cuda",
 ):
     """ACER self-play cycle: rollout, sequence-buffer store, two updates.
@@ -724,18 +729,17 @@ def make_acer_selfplay_step(
     whole fresh batch is used, in order).  ``packed_rows`` selects the packed
     train step (the sequences are always full aligned episodes).  Metrics:
     the on-policy actor, correction and critic losses, the off-policy actor
-    and critic losses and the mean score.  ``axis_name`` (data parallel) is
-    ROADMAP queue 1 item 11.
+    and critic losses and the mean score.  With ``axis_name`` (a process group
+    or a tuple of them) both updates average their gradients over the ranks,
+    and the mean score is averaged at the end.
     """
     from ..agents.acer import make_acer_train_step
 
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: ROADMAP queue 1 item 11 (data parallel)")
     dev = resolve_device(device)
     G = num_games
     rollout = make_acer_rollout(cfg, spec, G, r_factor, dev)
     train = make_acer_train_step(spec, optimizer, gamma, truncate, actor_weight, critic_weight,
-                                 packed_rows=packed_rows)
+                                 packed_rows=packed_rows, axis_name=axis_name)
     n_fresh = G * cfg.num_players
     k_on = None if on_policy_sequences is None else min(on_policy_sequences, n_fresh)
 
@@ -767,7 +771,7 @@ def make_acer_selfplay_step(
             "critic_loss": on_losses[2],
             "off_actor_loss": off_losses[0],
             "off_critic_loss": off_losses[2],
-            "mean_score": scores.to(torch.float32).mean(),
+            "mean_score": pmean_fused(scores.to(torch.float32).mean(), axis_name),
         }
         return params, opt_state, buf, metrics
 

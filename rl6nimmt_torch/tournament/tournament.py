@@ -323,19 +323,20 @@ class Tournament:
         no compile exists to save, so only the real games are played
         (``PARITY_TORCH.md`` §14).  ``pipeline=True`` dispatches every group
         before finalizing any, so all seats act on block-start parameters.
-        ``mesh`` (ROADMAP queue 1 item 11) is not ported yet and raises.
+        ``mesh`` (a :class:`~..parallel.mesh.Mesh`) shards every device
+        group's games over its ranks (:class:`~..runtime.device_tournament
+        .DeviceBlockSession`); every rank of the mesh runs the same tournament
+        on the same ``np.random`` state and ends with the same ELO and learners.
         """
         from ..runtime.block import BlockSession
         from ..runtime.device_tournament import (
             DeviceBlockSession,
             LearnerSlot,
-            check_unported,
             lineup_fastclass,
             lineup_signature,
             seat_slot,
         )
 
-        check_unported(mesh)
         # Learner slots are population-wide (not per-lineup), as in JAX:
         # culled-but-retained agents keep their slot, so a slot's index -- a
         # learner seat's kind -- is the same in every block.
@@ -370,8 +371,8 @@ class Tournament:
         sessions = []
         for group in device_groups.values():
             session = DeviceBlockSession(
-                [agents for _, agents in group], bucket=bucket, slots=slots, device_learning=device_learning,
-                device=self.device,
+                [agents for _, agents in group], bucket=bucket, mesh=mesh, slots=slots,
+                device_learning=device_learning, device=self.device,
             ).dispatch()
             if pipeline:
                 sessions.append((group, session))

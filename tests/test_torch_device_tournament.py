@@ -5,7 +5,7 @@
   from ``fold_in(seat key, 1..3)`` rebuilt as the port's noise.
 * A whole block against JAX's: ``tests/test_torch_device_block.py``.
 * Eligibility equals JAX's on counterpart agents; the learn stream follows
-  the GameSession protocol; ``mesh`` raises, ``device_learning`` runs (the
+  the GameSession protocol; ``mesh`` checks its device, ``device_learning`` runs (the
   session, ``play_device_block`` and both CLI flags); and the three decisions of ``PARITY_TORCH.md`` section 14 (single-round cap, PUCT
   gated on the session's K, K configurable).
 """
@@ -177,16 +177,19 @@ def test_learn_stream_follows_gamesession_protocol():
 
 
 def test_unported_options_raise():
-    """``mesh`` (ROADMAP queue 1 item 11) still raises; ``device_learning`` is
-    ported (item 10): the session and ``play_device_block`` accept it."""
+    """``mesh`` (ROADMAP queue 1 item 11) is ported: a mesh on another device
+    than the session's raises before any game (``tests/test_torch_parallel.py``
+    plays sharded blocks over gloo ranks); ``device_learning`` is ported (item
+    10): the session and ``play_device_block`` accept it."""
     lineup = [[tag.DrunkHamster(seed=0, device="cpu"), tag.DrunkHamster(seed=1, device="cpu")]]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdt.DeviceBlockSession(lineup, mesh=object(), device="cpu")
+    card_mesh = SimpleNamespace(device=torch.device("cuda"), size=1)
+    with pytest.raises(ValueError, match="mesh"):
+        tdt.DeviceBlockSession(lineup, mesh=card_mesh, device="cpu")
     t = Tournament(device="cpu")
     t.add_player("a", lineup[0][0])
     t.add_player("b", lineup[0][1])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t.play_device_block(2, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        t.play_device_block(2, mesh=card_mesh)
     assert t.total_games == 0
     dqn = tag.DQNVanilla(seed=2, minibatch=4, hidden_sizes=HID, device="cpu")
     dqn.train()

@@ -212,10 +212,14 @@ def test_cycle_is_deterministic_given_randomness(flags, kernel_act_rollout):
 
 
 def test_unported_options_raise():
+    """The TPU replay layouts (ROADMAP queue 1 item 1) still raise;
+    ``axis_name`` (data parallel, item 11) is ported and builds a cycle
+    (``tests/test_torch_parallel.py`` runs it over gloo ranks)."""
     cfg, td = EnvConfig(4), tdqn.DQNConfig(**FLAGSHIP)
-    for kw in ({"feature_major": True}, {"per_aligned_capacity": 100}, {"axis_name": "d"}):
+    for kw in ({"feature_major": True}, {"per_aligned_capacity": 100}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tvec.make_dqn_selfplay_step(cfg, td, tdqn.Adam(), G, device="cpu", **kw)
+    assert callable(tvec.make_dqn_selfplay_step(cfg, td, tdqn.Adam(), G, device="cpu", axis_name=(None,)))
 
 
 KD_G = 128                       # one 128-game tile: K5's columns run in (t, p, g) order

@@ -660,3 +660,100 @@ def test_arena_launches_and_card_equals_cpu():
                        turns=[[draw_seat(seat_policy_of(a)[0], gen, 64, 10) for a in agents] for _ in range(10)])
     np.testing.assert_array_equal(play_match(agents, 64, device=dev, noise=noise),
                                   play_match(agents, 64, device="cpu", noise=noise))
+
+
+# ------------------------------------------------- data parallel and host extras
+
+
+def _nccl_world_of_one(tmp_path):
+    import torch.distributed as dist
+    from rl6nimmt_torch.parallel.launch import check_backend
+
+    check_backend("nccl", 1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    return dist
+
+
+@pytest.mark.parametrize("mode", ["engine", "kernel", "insert"])
+def test_dp_dqn_cycle_nccl_world_size_one_equals_plain(tmp_path, mode):
+    """A DP DQN cycle over one NCCL rank is the plain cycle bit for bit and
+    launches the plain cycle's kernels."""
+    from rl6nimmt_torch.agents.dqn import tree_map
+    from rl6nimmt_torch.parallel import make_dp_dqn_step, make_mesh
+    from rl6nimmt_torch.runtime.dp_check import trees_equal
+    from rl6nimmt_torch.utils.ops import ALLREDUCES
+
+    dev = _cuda()
+    dist = _nccl_world_of_one(tmp_path)
+    try:
+        cfg, G = EnvConfig(4), 512
+        dqn = DQNConfig(**FLAGSHIP)
+        spec = q_network_spec(dqn, cfg.state_length, cfg.num_actions)
+        kw = dict(learn_iters=4, kernel_act_rollout=mode == "kernel", kernel_insert=mode == "insert")
+        outs, launches = [], []
+        for mesh in (None, make_mesh()):
+            cycle = make_dqn_selfplay_step(cfg, dqn, Adam(1e-3), G, device=dev, **kw) if mesh is None else \
+                make_dp_dqn_step(cfg, dqn, Adam(1e-3), G, mesh, **kw)
+            p = mlp_init(torch.Generator(device=dev).manual_seed(0), spec)
+            buf = per_init_kd(20 * 5120, S_PAD, SCAL_ROWS, device=dev) if mode == "insert" else \
+                per_init(50_000, dqn_replay_example(cfg), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            st = (p, tree_map(torch.clone, p), Adam(1e-3).init(p), buf)
+            _build.reset_launches()
+            calls = ALLREDUCES["calls"]
+            for _ in range(2):
+                *st, m = cycle(*st, gen, 0.0)
+            torch.cuda.synchronize()
+            launches.append({k: v for k, v in _build.LAUNCHES.items() if v})
+            outs.append((st[:3], m))
+        assert launches[0] == launches[1] and launches[0]
+        assert trees_equal(outs[0], outs[1])
+        assert ALLREDUCES["calls"] - calls == 2 * (4 + 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_two_gloo_ranks_share_the_card():
+    """Two gloo ranks on the one card: replicated params, reruns, the 1-rank
+    mesh equal to the plain steps and the sharded block equal to the unsharded
+    one (``runtime/dp_check.py``)."""
+    from rl6nimmt_torch.parallel.launch import spawn
+    from rl6nimmt_torch.runtime.dp_check import run_checks
+
+    _cuda()
+    _build.library()            # built once here, before the ranks load it
+    inputs = {"dqn_cycle": {"cfg": FLAGSHIP, "games": 256, "learn_iters": 2, "capacity": 20 * 5120,
+                            "mode": "insert"},
+              "reinforce_games": 256, "acer_games": 64, "block_games": 8}
+    out = spawn(run_checks, 2, inputs, "cuda", backend="gloo", timeout=600)[0]
+    assert out["replicated"] and all(out["replicated"].values())
+    assert out["rerun"] and all(out["rerun"].values())
+    assert out["size1"] == {"reinforce": True, "dqn": True, "acer": True}
+    assert all(v["identity"] and v["max_err"] <= 1e-6 for v in out["pmean"].values())
+    np.testing.assert_array_equal(out["block"]["n2"], out["block"]["n1"])
+    np.testing.assert_array_equal(out["block"]["n1"], out["block"]["fn"])
+    assert out["tournament"]["n2"] == out["tournament"]["n1"]
+    assert all(out["launches"].get(k) for k in ("deal_games", "resolve_turn", "act_insert"))
+
+
+@pytest.mark.parametrize("opponents", [["random", "random", "random"], ["uniform", "puct"]])
+def test_callback_game_on_the_card(monkeypatch, opponents):
+    """The human-vs-device game deals with K2 once and resolves each turn with
+    K1 (search seats add their playout turns)."""
+    import builtins
+    import re
+
+    from rl6nimmt_torch.runtime.callback_human import play_callback_game
+
+    dev = _cuda()
+    monkeypatch.setattr(builtins, "input",
+                        lambda p="": re.search(r"cards:\s*((?:\s*\d+)+)", p).group(1).split()[0])
+    _build.reset_launches()
+    scores = play_callback_game(opponents, mc_max=16, seed=2, device=dev)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["deal_games"] == 1
+    if opponents[0] == "random":
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10}
+    else:
+        assert _build.LAUNCHES["resolve_turn"] > 10
+    assert scores.shape == (1 + len(opponents),) and (scores <= 0).all()

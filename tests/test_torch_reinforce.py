@@ -216,14 +216,37 @@ def test_injected_randomness_of_the_wrong_shape_raises():
         rollout(params, tvec.RolloutRandomness(gumbel=rnd.gumbel, decks=torch.zeros((G, 100), dtype=torch.int32)))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """``axis_name`` (data parallel, ROADMAP queue 1 item 11) is ported: over a
+    one-rank gloo group the REINFORCE step and the ACER cycle (both of its
+    train steps) average over that one rank and equal the plain ones bit for
+    bit."""
+    import torch.distributed as dist
+
+    from rl6nimmt_torch.buffers import seq_init
+    from rl6nimmt_torch.nets import mlp_init
+
     _, tspec = _specs()
     _, aspec = _specs(heads=(1, 1))
-    for make in (lambda: tvec.make_reinforce_train_step(CFG, tspec, Adam(), G, axis_name="dp", device="cpu"),
-                 lambda: tvec.make_acer_selfplay_step(CFG, aspec, Adam(), G, axis_name="dp", device="cpu"),
-                 lambda: tacer.make_acer_train_step(aspec, Adam(), axis_name="dp")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        params = mlp_init(torch.Generator().manual_seed(0), tspec, "cpu")
+        aparams = mlp_init(torch.Generator().manual_seed(1), aspec, "cpu")
+        outs = []
+        for axis in (None, group):
+            step = tvec.make_reinforce_train_step(CFG, tspec, Adam(), G, axis_name=axis, device="cpu")
+            cycle = tvec.make_acer_selfplay_step(CFG, aspec, Adam(), G, minibatch=8, on_policy_sequences=None,
+                                                 axis_name=axis, device="cpu")
+            buf = seq_init(64, CFG.max_turns, tvec.acer_sequence_example(CFG), device="cpu")
+            p, _, m = step(params, Adam().init(params), torch.Generator().manual_seed(2))
+            ap, _, _, am = cycle(aparams, Adam().init(aparams), buf, torch.Generator().manual_seed(3))
+            outs.append(tree_leaves(p) + list(m.values()) + tree_leaves(ap) + list(am.values()))
+        assert len(outs[0]) == len(outs[1])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------- host agents
