@@ -6,32 +6,44 @@ Builds the port's CUDA kernels from ``rl6nimmt_torch/csrc`` (nvcc, one
 process per source), then:
 
 1. prints the card, its power limit, the torch/CUDA versions, the build time
-   and ptxas registers/spills per kernel, and requires 0 B stack frame and 0
-   spills of every K1, K2, K3 and K6 ``env``/``obs`` instance and of K7's
-   ``probe_k7``;
+   and ptxas registers/spills per kernel (K4's feature-major entry
+   ``act_rollout_fm_kernel`` among them, required present), and requires 0 B
+   stack frame and 0 spills of every K1, K2, K3 and K6 ``env``/``obs`` instance
+   and of K7's ``probe_k7``;
 2. holds K1-K5 against their plain PyTorch twins at the main path's shapes
    (P=4, G=4096, hidden 64): K1-K3 bit-exact (K1 in both layouts, the
    games-last entry also against the row-major one on the transposed state,
    on every one of the 10 turns, and a launch under ``torch.cuda.stream``
    on that stream), K4 with exact deals, action
-   agreement >= 0.999 and equal observations/rewards in agreeing games; K5 at
+   agreement >= 0.999 and equal observations/rewards in agreeing games (K4's
+   feature-major entry the same against its twin, the row-major twin's
+   outputs permuted); K5 at
    capacity 204,800 and ptr 163,840 (tile regions wrap past the ring end) on
    sentinel-filled planes, every written column equal to the twin's in
    agreeing games, pad rows zero and the unwritten columns untouched;
 3. replays K4's games on the engine path (``greedy_replay_agreement``) and
-   holds K5's planes against K4's trajectory (``insert_planes_agreement``);
+   holds K5's planes against the n-step harvests of K4's trajectory in both
+   layouts (``insert_planes_agreement``: ``to_transitions`` of the row-major
+   one, ``to_transitions_fm`` of the feature-major one);
 4. drives the main path with every launch counter at 0: 3 random-rollout
    generations fused (K3), on the engine path (K2 + K1) and games-last (K2 +
    the games-last K1), which must agree bit for bit, then 3 flagship
    Noisy-D3QN-PER-10step cycles (PER 200,000, 8 updates, Adam 1e-3) on the
    engine path, 3 with ``kernel_act_rollout=True`` (K4), 3 with
-   ``kernel_insert=True`` (K5, ``per_init_kd`` 204,800); each path must
-   launch exactly its kernels; then two cycles from one state and one
-   injected randomness must agree bit for bit, in every mode;
-5. times each kernel and its twin with CUDA events (``ms``: per call, the
-   host's launch route included) and each kernel on the device alone
-   (``device_ms``: its ``torch.profiler`` kernel events per launch), and the
-   rollouts and cycles in env-steps/s;
+   ``kernel_insert=True`` (K5, ``per_init_kd`` 204,800), 3 with K4's
+   feature-major emit into ``per_init_fm`` 200,000 (``kernel_fm``) and 3 into
+   ``per_init_aligned_fm(200,000, G*P*T)`` (``kernel_fm_aligned``, physical
+   327,680); each path must launch exactly its kernels, every loss must be
+   finite and each buffer's (size, ptr) as its layout says; then two cycles
+   from one state and one injected randomness must agree bit for bit, in every
+   mode;
+5. holds K4's feature-major emit to its row-major emit permuted, bit for bit
+   (``fm_agreement``), at G = 4096, 4000 and 33 and hidden 64 and 256; times
+   each kernel and its twin with CUDA events (``ms``: per call, the host's
+   launch route included) and each kernel on the device alone (``device_ms``:
+   its ``torch.profiler`` kernel events per launch), and the rollouts and the
+   cycles in env-steps/s, the cycle modes in turns (each mode twice, in the
+   order forward then backward); then traces one cycle of each mode;
 6. drives the ablation and probe path with every launch counter at 0: the
    act-rollout ablation's entry point (``env``, ``obs``, ``mm`` on K6,
    ``full`` on K4; chains of ABLATE_CHAIN generations) and the probe entry
@@ -106,7 +118,7 @@ process per source), then:
    arena's shapes;
 11. drives data parallel (``parallel/mesh.py``) and the host extras: (a) NCCL at
    world size 1 in this process, the DP REINFORCE step (the (100, 100) net), the
-   DP flagship cycle in modes engine, kernel and insert and the DP ACER cycle at
+   DP flagship cycle in modes engine, kernel, kernel_fm and insert and the DP ACER cycle at
    G=4096, each -- with every counter at 0 just before the DP path -- equal to its
    plain step bit for bit and launching its K1/K2/K4/K5 counts a step; their
    env-steps/s beside the plain steps' (in turns), the all-reduces and bytes an
@@ -117,13 +129,23 @@ process per source), then:
    and K5 against their twins at 2048 games; (c) the sharded device block equal
    to the unsharded one; (d) ``play_callback_game`` with a scripted human (K2
    once, K1 ten times) and ``train_selfplay --algo dqn --steps 2 --save`` reloaded
-   bit for bit.
+   bit for bit;
+12. runs the ``main()`` of each experiment script ported with the replay
+   layouts, at a depth cut to keep the phase short (each cut in the log),
+   with its checks and, where the path's count is exact, its K1/K2/K4/K5
+   launches: ``fm_cycle_bench`` (G=4096, every arm, 2 repeats of 1 cycle),
+   ``micro_insert`` at its full shape, ``fm_strength_ab`` (1 seed, 3 cycles,
+   1,024 eval games), ``train_puct_prior`` (2 iterations of 64 games at mc_max
+   128, a 32-game head-to-head), ``long_train_eval`` (both algorithms, a few
+   updates and evals), ``strength_vs_budget`` (2 games at mc_max 32 against
+   16) and ``play_human --device-game`` with a scripted human.
 
-Prints the ``search``, ``learners``, ``tournament``, ``arena`` and ``dp`` JSON lines, one JSON line
+Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp`` and ``scripts`` JSON lines, one JSON line
 of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
 K2's rows their launches on the search, the learners', the tournament's and the
-arena's path, and K1's row-major, K2's, K4's and K5's on the DP path), the
+arena's path, K1's row-major, K2's, K4's in both layouts and K5's on the DP
+path, and K1's, K2's, K4's and K5's on the scripts' path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -158,6 +180,8 @@ PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
 LEARN_ITERS = 8
+FM_CHECK_GAMES = (G, 4000, 33)    # K4's feature-major emit: the flagship, a ragged last block, one past a block
+FM_CHECK_HIDDEN = (HIDDEN, 256)   # one chunk of the hidden layer, four
 ABLATE_CHAIN = 32          # generations per timed ablation chain (the JAX script chained 256)
 REPS = 5                   # a kernel's per-call ms: the median of this many timed runs
 ABLATE_G_WIDE = 16_384     # 4x the main path's games: 512 blocks of 32
@@ -1002,11 +1026,12 @@ def dp_arms(cfg, dev):
     """Phase 11(a)'s arms: ``{name: (fresh_state, make_step, updates)}``; a step
     is ``make_step(mesh)`` (the plain step for ``mesh=None``), called as
     ``step(state, generator) -> (state, metrics)``.  REINFORCE (G, the (100,
-    100) net, Adam 1e-3), the flagship DQN cycle in modes engine, kernel and
-    insert (G, PER 200,000 or the kd planes, LEARN_ITERS updates) and ACER at
+    100) net, Adam 1e-3), the flagship DQN cycle in modes engine, kernel,
+    kernel_fm and insert (G, PER 200,000 row-major or feature-major, or the kd
+    planes, LEARN_ITERS updates) and ACER at
     ``bench_trainable.py``'s widths."""
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_map
-    from rl6nimmt_torch.buffers import per_init, per_init_kd, seq_init
+    from rl6nimmt_torch.buffers import per_init, per_init_fm, per_init_kd, seq_init
     from rl6nimmt_torch.experiments import trainable_bench as tb
     from rl6nimmt_torch.nets import MLPSpec, mlp_init
     from rl6nimmt_torch.ops.act_rollout_kernel import S_PAD, SCAL_ROWS
@@ -1026,7 +1051,8 @@ def dp_arms(cfg, dev):
         return lambda st, g: (lambda p, o, m: ((p, o), m))(*fn(*st, g))
 
     def dqn_cycle(mode):
-        kw = dict(learn_iters=LEARN_ITERS, kernel_act_rollout=mode == "kernel", kernel_insert=mode == "insert")
+        kw = dict(learn_iters=LEARN_ITERS, kernel_act_rollout=mode in ("kernel", "kernel_fm"),
+                  feature_major=mode == "kernel_fm", kernel_insert=mode == "insert")
 
         def make(mesh):
             fn = vector.make_dqn_selfplay_step(cfg, dqn, adam, G, device=dev, **kw) if mesh is None else \
@@ -1035,8 +1061,11 @@ def dp_arms(cfg, dev):
 
         def fresh():
             p = init(qspec, 31)
-            buf = per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev) if mode == "insert" else \
-                per_init(PER_CAPACITY, vector.dqn_replay_example(cfg), device=dev)
+            if mode == "insert":
+                buf = per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev)
+            else:
+                buf = (per_init_fm if mode == "kernel_fm" else per_init)(PER_CAPACITY, vector.dqn_replay_example(cfg),
+                                                                          device=dev)
             return p, tree_map(torch.clone, p), adam.init(p), buf
         return fresh, make
 
@@ -1047,7 +1076,7 @@ def dp_arms(cfg, dev):
         return lambda st, g: (lambda p, o, b, m: ((p, o, b), m))(*fn(*st, g))
 
     arms = {"reinforce": ((lambda: (init(rspec, 32), adam.init(init(rspec, 32)))), reinforce, 1)}
-    for mode in ("engine", "kernel", "insert"):
+    for mode in ("engine", "kernel", "kernel_fm", "insert"):
         fresh, make = dqn_cycle(mode)
         arms[f"dqn_{mode}"] = (fresh, make, LEARN_ITERS)
     arms["acer"] = ((lambda: (init(aspec, 33), adam.init(init(aspec, 33)),
@@ -1274,6 +1303,119 @@ def dp_phase(dev, card, k4_args):
     return line, dp_path, errs
 
 
+def scripts_phase(dev, card):
+    """Phase 12: the ``main()`` of each experiment script ported with the replay
+    layouts, on the card at a cut depth (each cut stated in the log), with its
+    checks; every counter is set to 0 just before each script and read just
+    after, and held to the script's exact K1/K2/K4/K5 launches.  Returns the
+    ``scripts`` line and the launches summed over the scripts."""
+    import builtins
+    import contextlib
+    import io
+    import tempfile
+
+    from rl6nimmt_torch.agents import PUCTAgent
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments import (fm_cycle_bench, fm_strength_ab, long_train_eval, micro_insert,
+                                            play_human, strength_vs_budget, train_puct_prior)
+    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.runtime.device_match import playout_turns_per_seat
+
+    line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
+    cfg4, cfg2 = EnvConfig(4), EnvConfig(2)
+    T = cfg4.max_turns
+    match = lambda k2, k1: {"deal_games": k2, "resolve_turn": k1}      # K2 once and K1 ten times a plain match
+
+    def run(name, cut, argv, want, main):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in got.items():
+            path[k] += v
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        line[name] = {"argv": argv, "cut": cut, "seconds": secs, "launches": got}
+        log(f"[12] {name} {' '.join(argv)} ({cut}): {secs:.2f} s, launches {got}")
+        for text in out.getvalue().strip().splitlines()[-6:]:
+            log(f"[12]   {text}")
+        return result, out.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # fm_cycle_bench: every arm, one warm-up cycle and 2 timed runs of 1 cycle each.
+        block = G * T * cfg4.num_players
+        res, _ = run("fm_cycle_bench", "2 repeats of 1 cycle, not 3 of 8", ["--games", str(G), "--reps", "2",
+                                                                             "--chain", "1"],
+                     {"deal_games": 3, "resolve_turn": 3 * T, "act_rollout": 3, "act_rollout_fm": 6,
+                      "act_insert": 3}, fm_cycle_bench.main)
+        for arm, r in res.items():
+            logical = min(3 * block, fm_cycle_bench.KD_CAPACITY if arm == "insert" else fm_cycle_bench.CAPACITY)
+            if r["per_size"] != logical or not math.isfinite(r["ms_per_cycle"]):
+                raise AssertionError(f"fm_cycle_bench {arm}: size {r['per_size']}, ms {r['ms_per_cycle']}")
+        line["fm_cycle_bench"]["arms"] = res
+        # micro_insert at its full shape: no kernel of the port runs (the insert is PyTorch's).
+        res, _ = run("micro_insert", "full shape", [], {}, micro_insert.main)
+        line["micro_insert"]["arms"] = res
+        # fm_strength_ab: each arm trains 3 cycles of 1,024 games; one arena match of 1,024 games each.
+        out_path = os.path.join(tmp, "ab.json")
+        res, _ = run("fm_strength_ab", "1 seed, 3 cycles, 1 eval of 1,024 games",
+                     ["--seeds", "1", "--cycles", "3", "--eval-games", "1024", "--eval-keys", "1", "--out", out_path],
+                     {"deal_games": 3 + 3, "resolve_turn": 3 * T + 3 * T, "act_rollout": 3, "act_rollout_fm": 3},
+                     fm_strength_ab.main)
+        if not all(-10 * 104 <= res[a]["score_mean"] <= 0 for a in fm_strength_ab.ARMS) or not os.path.exists(out_path):
+            raise AssertionError(f"fm_strength_ab: scores {[res[a]['score_mean'] for a in fm_strength_ab.ARMS]}")
+        line["fm_strength_ab"]["scores"] = {a: res[a]["score_mean"] for a in fm_strength_ab.ARMS}
+        # train_puct_prior: 2 device blocks of 64 all-PUCT games (one search call a turn), then two
+        # 16-game two-seat matches (two searchers each).
+        ptps4, ptps2 = playout_turns_per_seat(cfg4, 128), playout_turns_per_seat(cfg2, 128)
+        prior_path = os.path.join(tmp, "prior.npz")
+        res, _ = run("train_puct_prior", "2 iterations, not 100; a 32-game head-to-head at mc_max 128",
+                     ["--iters", "2", "--games", "64", "--mc-max", "128", "--eval-games", "32", "--eval-mc-max",
+                      "128", "--out", prior_path],
+                     match(4, 2 * (T + ptps4) + 2 * (T + 2 * ptps2)), train_puct_prior.main)
+        if not (0 <= res["win_rate"] <= 1 and all(math.isfinite(x) for x, _ in res["history"])
+                and os.path.exists(prior_path)):
+            raise AssertionError(f"train_puct_prior: win rate {res['win_rate']}, history {res['history']}")
+        line["train_puct_prior"].update(win_rate=res["win_rate"], history=res["history"])
+        # long_train_eval: REINFORCE 2 updates and evals before and after; DQN 2 cycles, 3 evals.
+        for algo, flags, want in (("reinforce", ["--updates", "2", "--eval-every", "2"], match(2 + 2, 10 * 4)),
+                                  ("dqn", ["--cycles", "2"], match(2 + 3, 10 * 5))):
+            hist, _ = run(f"long_train_eval_{algo}", "a few updates, evals of 1,024 games",
+                          ["--algo", algo, *flags, "--games", str(G), "--eval-games", "1024",
+                           "--out", os.path.join(tmp, algo)], want, long_train_eval.main)
+            if not all(math.isfinite(h["loss"]) for h in hist[1:]):
+                raise AssertionError(f"long_train_eval {algo}: history {hist}")
+            line[f"long_train_eval_{algo}"]["win_rates"] = [h["win_rate"] for h in hist]
+        # strength_vs_budget: two host GameSession games; a wrapper reset is K2, a turn K1, and
+        # each host search call ceil(n_mc / batch) rounds of n playout turns.
+        big, small = PUCTAgent(mc_max=32, device="cpu"), PUCTAgent(mc_max=16, device="cpu")
+        searches = sum(host_search_turns(a, n) for a in (big, small) for n in range(1, cfg2.hand_size + 1))
+        res, _ = run("strength_vs_budget", "2 games at mc_max 32 against 16, not 100 at 800 against 400",
+                     ["--games", "2", "--big", "32", "--small", "16"], match(2, 2 * (T + searches)),
+                     strength_vs_budget.main)
+        line["strength_vs_budget"]["result"] = res
+        # play_human --device-game: a scripted human (the first held card) against one PUCT seat.
+        prompts, real_input = [], builtins.input
+        builtins.input = lambda prompt="": (prompts.append(prompt),
+                                            re.search(r"cards:\s*((?:\s*\d+)+)", prompt).group(1).split()[0])[1]
+        try:
+            totals, printed = run("play_human", "1 game at mc_max 32, not 5 at 800, scripted human",
+                                  ["--device-game", "--games", "1", "--mc-max", "32", "--name", "Scripted"],
+                                  match(1, T + playout_turns_per_seat(cfg2, 32)), play_human.main)
+        finally:
+            builtins.input = real_input
+        if len(prompts) != T or "Series total: Scripted" not in printed or not (totals <= 0).all():
+            raise AssertionError(f"play_human: {len(prompts)} prompts, totals {totals}")
+        line["play_human"]["totals"] = [float(x) for x in totals]
+    line["phase_launches"] = {k: v for k, v in path.items() if v}
+    return line, path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
@@ -1282,14 +1424,16 @@ def main():
     from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec, tree_leaves
     from rl6nimmt_torch.experiments.kernel_times import (check_yardsticks, cuda_ms, device_ms, smi_line,
                                                          yardsticks)
-    from rl6nimmt_torch.buffers import per_clone, per_init, per_init_kd
+    from rl6nimmt_torch.buffers import per_clone, per_init, per_init_aligned_fm, per_init_fm, per_init_kd
     from rl6nimmt_torch.engine import EnvConfig, deal, step
     from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
     from rl6nimmt_torch.ops import _build
-    from rl6nimmt_torch.ops.act_rollout_check import (greedy_replay_agreement, insert_planes_agreement,
-                                                      insert_twin_agreement, turn_effective_weights)
-    from rl6nimmt_torch.ops.act_rollout_kernel import (S_PAD, SCAL_ROWS, act_insert_plain, act_rollout_plain,
-                                                       make_act_insert_kernel, make_act_rollout_kernel)
+    from rl6nimmt_torch.ops.act_rollout_check import (fm_agreement, greedy_replay_agreement,
+                                                      insert_planes_agreement, insert_twin_agreement,
+                                                      turn_effective_weights)
+    from rl6nimmt_torch.ops.act_rollout_kernel import (S_PAD, SCAL_ROWS, act_insert_plain, act_rollout_fm_plain,
+                                                       act_rollout_plain, make_act_insert_kernel,
+                                                       make_act_rollout_kernel)
     from rl6nimmt_torch.ops.game_kernel import (deal_games, deal_games_plain, play_random_games,
                                                 play_random_games_plain)
     from rl6nimmt_torch.ops.step_kernel import (resolve_turn, resolve_turn_plain, resolve_turn_t,
@@ -1321,6 +1465,9 @@ def main():
            for v in lean_ptxas.values()):
         raise AssertionError(f"K1, K2, K3, K6 env/obs and K7 k7 instances must use no stack and no spills: "
                              f"{lean_ptxas}")
+    if "act_rollout_fm_kernel" not in ptxas:
+        raise AssertionError("the build holds no ptxas line of K4's feature-major entry act_rollout_fm_kernel")
+    log(f"[1] K4 feature-major entry act_rollout_fm_kernel: {ptxas['act_rollout_fm_kernel']}")
 
     cfg = EnvConfig(4)
     dqn = DQNConfig(**FLAGSHIP)
@@ -1332,6 +1479,7 @@ def main():
     k4_args = tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
                                              eff["heads"][1]["w"], eff["heads"][1]["b"]))
     play = make_act_rollout_kernel(cfg, G, HIDDEN)
+    play_fm = make_act_rollout_kernel(cfg, G, HIDDEN, feature_major=True)
 
     # ------------------------------------------------------------ phase 2
     errs, k1_inputs = {"resolve_turn": 0.0, "resolve_turn_t": 0.0}, None
@@ -1383,10 +1531,16 @@ def main():
     if k4_agree < 0.999 or not (torch.equal(ok[:, same], op[:, same]) and torch.equal(rk[:, same], rp[:, same])):
         raise AssertionError(f"K4 act_rollout vs twin: action agreement {k4_agree}")
     errs["act_rollout"] = max_abs_err([(ok[:, same], op[:, same]), (rk[:, same], rp[:, same])])
+    (okf, akf, rkf), (opf, apf, rpf) = play_fm(79, *k4_args), act_rollout_fm_plain(cfg, 79, G, *k4_args)
+    same_fm = (akf == apf).all(dim=0)
+    if not (torch.equal(okf[:, :cfg.num_players], opf[:, :cfg.num_players]) and torch.equal(same_fm, same)
+            and torch.equal(okf[..., same_fm], opf[..., same_fm]) and torch.equal(rkf[:, same_fm], rpf[:, same_fm])):
+        raise AssertionError("K4 act_rollout_fm vs twin: deals, agreeing games or their outputs differ")
+    errs["act_rollout_fm"] = max_abs_err([(okf[..., same_fm], opf[..., same_fm]), (rkf[:, same_fm], rpf[:, same_fm])])
     log(f"[2] K1-K3 bit-exact vs twins at G={G} (K1 in both layouts on all {cfg.max_turns} turns, the "
         f"games-last entry == the row-major one; a launch under torch.cuda.stream is on that stream); "
         f"K4 deals exact, action agreement {k4_agree:.6f}, "
-        f"{int(same.sum())}/{G} games identical")
+        f"{int(same.sum())}/{G} games identical; K4 feature-major vs its twin: the same games agree, bit for bit")
     k5_agree, k5_games, errs["act_insert"] = insert_twin_agreement(cfg, G, HIDDEN, KD_CAPACITY, KD_PTR, 81, k4_args)
     if k5_agree < 0.999 or errs["act_insert"] != 0.0:
         raise AssertionError(f"K5 act_insert vs twin: action agreement {k5_agree}, error {errs['act_insert']}")
@@ -1399,18 +1553,24 @@ def main():
         raise AssertionError(f"greedy replay agreement {action_agree}, {score_agree}")
     log(f"[3] greedy_replay_agreement at G={G}: actions {action_agree:.6f}, scores {score_agree:.6f}")
     reward_err = insert_planes_agreement(cfg, dqn, spec, params, G, KD_CAPACITY, 82, KD_PTR, turn_noise)
-    log(f"[3] insert_planes_agreement at G={G}: K5 planes == K4's n-step harvest, rewards within {reward_err:.3g}")
+    log(f"[3] insert_planes_agreement at G={G}: K5 planes == the n-step harvests of K4's row-major and "
+        f"feature-major trajectories, rewards within {reward_err:.3g}")
 
     # ------------------------------------------------------------ phase 4
     adam = Adam(1e-3)
     block = G * cfg.num_players * cfg.max_turns
-    options = {"engine": {}, "kernel": dict(kernel_act_rollout=True), "insert": dict(kernel_insert=True)}
+    options = {"engine": {}, "kernel": dict(kernel_act_rollout=True), "insert": dict(kernel_insert=True),
+               "kernel_fm": dict(kernel_act_rollout=True, feature_major=True),
+               "kernel_fm_aligned": dict(kernel_act_rollout=True, feature_major=True,
+                                         per_aligned_capacity=PER_CAPACITY)}
     cycles = {mode: make_dqn_selfplay_step(cfg, dqn, adam, G, learn_iters=LEARN_ITERS, device=dev, **kw)
               for mode, kw in options.items()}
     fresh_buffer = {
         "engine": lambda: per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
         "kernel": lambda: per_init(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
         "insert": lambda: per_init_kd(KD_CAPACITY, S_PAD, SCAL_ROWS, device=dev),
+        "kernel_fm": lambda: per_init_fm(PER_CAPACITY, dqn_replay_example(cfg), device=dev),
+        "kernel_fm_aligned": lambda: per_init_aligned_fm(PER_CAPACITY, block, dqn_replay_example(cfg), device=dev),
     }
     rollouts = {mode: make_random_rollout_generations(cfg, G, GENERATIONS, fused=(mode == "fused"),
                                                       games_last=(mode == "games_last"), device=dev)
@@ -1437,11 +1597,15 @@ def main():
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite loss in {mode} cycles: {losses}")
         inserted = CYCLES * block
-        if (buf.size, buf.ptr) != (min(inserted, buf.capacity), inserted % buf.capacity):
-            raise AssertionError(f"{mode} cycles left PER size {buf.size}, ptr {buf.ptr}")
+        # The aligned buffer's size saturates at the logical capacity; its ptr runs over the physical one.
+        logical = PER_CAPACITY if mode == "kernel_fm_aligned" else buf.capacity
+        if (buf.size, buf.ptr) != (min(inserted, logical), inserted % buf.capacity) \
+                or int((buf.priorities > 0).sum()) != min(inserted, logical):
+            raise AssertionError(f"{mode} cycles left PER size {buf.size}, ptr {buf.ptr}, "
+                                 f"{int((buf.priorities > 0).sum())} live slots")
         train_state[mode] = (p, tgt, o, buf)
         log(f"[4] {CYCLES} flagship cycles ({mode}): losses {losses}, mean score {float(m['mean_score'])}, "
-            f"PER size {buf.size}, ptr {buf.ptr}")
+            f"PER size {buf.size}, ptr {buf.ptr} (physical capacity {buf.capacity})")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # ---- end of the main path ----
@@ -1451,7 +1615,8 @@ def main():
     expected = {"rollout_engine": engine_path, "rollout_fused": {"play_random_games": 1},
                 "rollout_games_last": {"deal_games": 1, "resolve_turn_t": cfg.max_turns},
                 "cycle_engine": engine_path, "cycle_kernel": {"act_rollout": 1},
-                "cycle_insert": {"act_insert": 1}}
+                "cycle_insert": {"act_insert": 1}, "cycle_kernel_fm": {"act_rollout_fm": 1},
+                "cycle_kernel_fm_aligned": {"act_rollout_fm": 1}}
     missing = sorted({k for want in expected.values() for k in want if launches[k] == 0})
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1480,6 +1645,19 @@ def main():
         f"(modes {', '.join(cycles)})")
 
     # ------------------------------------------------------------ phase 5
+    # K4's feature-major emit against its row-major emit permuted, bit for bit.
+    for hidden in FM_CHECK_HIDDEN:
+        hdqn = DQNConfig(**dict(FLAGSHIP, hidden_sizes=(hidden,)))
+        hspec = q_network_spec(hdqn, cfg.state_length, cfg.num_actions)
+        hgen = torch.Generator(device=dev).manual_seed(20261017 + hidden)
+        heff = turn_effective_weights(hspec, mlp_init(hgen, hspec), draw_mlp_noise(hspec, hgen,
+                                                                                  batch=(cfg.max_turns,)))
+        hargs = tuple(x.contiguous() for x in (heff["trunk"][0]["w"], heff["trunk"][0]["b"],
+                                               heff["heads"][1]["w"], heff["heads"][1]["b"]))
+        for games in FM_CHECK_GAMES:
+            fm_agreement(cfg, games, hidden, 83, hargs)
+    log(f"[5] fm_agreement: K4 feature-major == K4 row-major permuted, bit for bit, at G in {FM_CHECK_GAMES} "
+        f"and hidden in {FM_CHECK_HIDDEN}")
     # The rates and every per-call time come before the first profiler session
     # of this process (device_ms, profile_call): a session may slow later host work.
     P, R, T, H, S, A = cfg.num_players, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.state_length, cfg.num_actions
@@ -1491,11 +1669,17 @@ def main():
                                               device=dev)
         sec = host_seconds(lambda: one(4242), 10 if mode == "fused" else 3)
         rates[f"random_rollout_{mode}_env_steps_per_s"] = steps_per_gen / sec
-    for mode, cycle in cycles.items():
+    # The cycle modes in turns, forward then backward (the host's speed drifts);
+    # each mode's rate from the mean of its two runs.
+    cycle_secs = {mode: [] for mode in cycles}
+    for mode in list(cycles) + list(reversed(cycles)):
         p, tgt, o, buf = train_state[mode]
         cgen = torch.Generator(device=dev).manual_seed(11)
-        sec = host_seconds(lambda: cycle(p, tgt, o, buf, cgen, 0.0), 3)
-        rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / sec
+        cycle_secs[mode].append(host_seconds(lambda: cycles[mode](p, tgt, o, buf, cgen, 0.0), 3))
+    for mode, secs in cycle_secs.items():
+        rates[f"dqn_cycle_{mode}_env_steps_per_s"] = steps_per_gen / (sum(secs) / len(secs))
+    log(json.dumps({"cycle_seconds_in_turns": cycle_secs, "order": list(cycles) + list(reversed(cycles)),
+                    "card": card}))
     for k, v in rates.items():
         log(json.dumps({"metric": k, "value": v, "card": card}))
     # Phase 8's path and rates, also before the first profiler session.
@@ -1517,6 +1701,8 @@ def main():
                               lambda: play_random_games_plain(cfg, 6, G, dev), 100, 3),
         "act_rollout": (lambda: play(7, *k4_args),
                         lambda: act_rollout_plain(cfg, 7, G, *k4_args), 20, 3),
+        "act_rollout_fm": (lambda: play_fm(7, *k4_args),
+                           lambda: act_rollout_fm_plain(cfg, 7, G, *k4_args), 20, 3),
         "act_insert": (lambda: insert(7, KD_PTR, *k4_args, *k5_planes),
                        lambda: act_insert_plain(cfg, 7, G, *k4_args, KD_PTR, *k5_planes, 0.99, dqn.n_steps), 20, 3),
     }
@@ -1537,7 +1723,7 @@ def main():
     work = {"resolve_turn": (k1_bytes, k1_ops), "resolve_turn_t": (k1_bytes, k1_ops),
             "deal_games": (k2_bytes, k2_ops),
             "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops),
-            "act_insert": (k5_bytes, k4_flops)}
+            "act_rollout_fm": (k4_bytes, k4_flops), "act_insert": (k5_bytes, k4_flops)}
     meta = {
         "resolve_turn": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
                          f"board i32[{G},{R},{T}], row_len i32[{G},{R}], actions i32[{G},{P}]"),
@@ -1549,6 +1735,9 @@ def main():
                               f"seed -> rewards i32[{G},{P}], checksum f32[{G}]"),
         "act_rollout": ("rl6nimmt_torch/csrc/act_rollout_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:232",
                         f"w1 f32[{turns},{S},{HIDDEN}], wa f32[{turns},{HIDDEN},{A}] -> obs i8[{turns + 1},{G},{P},{S}]"),
+        "act_rollout_fm": ("rl6nimmt_torch/csrc/act_rollout_kernel.cu",
+                           "rl6nimmt_tpu/ops/act_rollout_kernel.py:239",
+                           f"K4's weights -> obs i8[{S},{(turns + 1) * P},{G}], actions/rewards i32[{turns * P},{G}]"),
         "act_insert": ("rl6nimmt_torch/csrc/act_insert_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:351",
                        f"K4's weights, ptr {KD_PTR} -> planes i8[{S_PAD},{KD_CAPACITY}] x2, "
                        f"f32[{SCAL_ROWS},{KD_CAPACITY}] in place, rewards i32[{turns * P},{G}]"),
@@ -1585,7 +1774,7 @@ def main():
     k1_games, k1_threads = _build.library().rl6_resolve_games(), _build.library().rl6_resolve_threads()
     k23_games, k23_threads = _build.library().rl6_game_games(), _build.library().rl6_game_threads()
     for row in rows:
-        if row["name"] in ("act_rollout", "act_insert"):
+        if row["name"] in ("act_rollout", "act_rollout_fm", "act_insert"):
             row.update(ptxas=ptxas_of(row["name"]), games_per_block=games_per_block,
                        blocks=-(-G // games_per_block))
         if row["name"].startswith("resolve_turn"):
@@ -1762,13 +1951,24 @@ def main():
     dp_line, dp_launches, dp_errs = dp_phase(dev, card, k4_args)
     dp_line["phase_s"] = time.perf_counter() - t0
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_insert"):
+        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert"):
             row["dp_path_launches"] = dp_launches[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], dp_errs.get(row["name"], 0.0))
-    missing = [k for k in ("resolve_turn", "deal_games", "act_rollout", "act_insert") if not dp_launches[k]]
+    missing = [k for k in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert")
+               if not dp_launches[k]]
     if missing:
         raise AssertionError(f"kernels never launched on the DP path: {missing}")
     print(json.dumps({"dp": dp_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 12
+    t0 = time.perf_counter()
+    scripts_line, scripts_launches = scripts_phase(dev, card)
+    scripts_line["phase_s"] = time.perf_counter() - t0
+    log(f"[12] the experiment scripts took {scripts_line['phase_s']:.1f} s")
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert"):
+            row["scripts_path_launches"] = scripts_launches[row["name"]]
+    print(json.dumps({"scripts": scripts_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -11,12 +11,14 @@ Differences from the JAX version, all in ``PARITY_TORCH.md``:
 * storage and priorities are updated **in place** (``index_copy_``); the
   functions still return a new :class:`PERState` carrying the advanced
   host-side ``ptr``/``size`` and the device-side ``beta``;
-* two storage layouts: row-major (:func:`per_init`, slot axis first) and the
-  direct-insert planes of :func:`per_init_kd` (slot axis last; pass
-  ``slot_axis=-1`` to :func:`per_sample`) that K5 writes itself, with
-  :func:`per_mark_batch` doing the bookkeeping.  The JAX package's
-  feature-major and aligned layouts, devices of the TPU's block writes, are
-  not ported;
+* the JAX package's storage layouts: row-major (:func:`per_init`, slot
+  axis first), feature-major (:func:`per_init_fm`, slot axis last; pass
+  ``slot_axis=-1`` to :func:`per_add_batch` and :func:`per_sample`), the
+  block-aligned twins of both (:func:`per_init_aligned`,
+  :func:`per_init_aligned_fm`, filled by :func:`per_add_batch_aligned`: one
+  slice write a cycle, never a wrap) and the direct-insert planes of
+  :func:`per_init_kd` (slot axis last) that K5 writes itself, with
+  :func:`per_mark_batch` doing the bookkeeping;
 * :func:`per_sample` takes its uniforms ``u[n]`` as an argument (injected
   randomness), instead of a key;
 * :func:`per_update` resolves duplicate indices explicitly: the LAST
@@ -61,6 +63,44 @@ def per_init(capacity: int, example: Dict[str, torch.Tensor], device="cuda") -> 
     storage = {k: torch.zeros((capacity,) + tuple(v.shape), dtype=v.dtype, device=device)
                for k, v in example.items()}
     return _empty_state(storage, capacity, device)
+
+
+def per_init_fm(capacity: int, example: Dict[str, torch.Tensor], device="cuda") -> PERState:
+    """Feature-major PER buffer: every storage leaf has its slot axis LAST
+    (``state [S]`` becomes ``state [S, capacity]``, a scalar ``[capacity]``).
+    Priorities, ptr, size and beta behave as :func:`per_init`'s; pass
+    ``slot_axis=-1`` to :func:`per_add_batch` and :func:`per_sample`."""
+    device = resolve_device(device)
+    storage = {k: torch.zeros(tuple(v.shape) + (capacity,), dtype=v.dtype, device=device)
+               for k, v in example.items()}
+    return _empty_state(storage, capacity, device)
+
+
+def _aligned_capacity(capacity: int, insert_block: int) -> int:
+    """``capacity`` rounded up to a multiple of ``insert_block``."""
+    if insert_block <= 0:
+        raise ValueError(f"insert_block must be positive, got {insert_block}")
+    return -(-capacity // insert_block) * insert_block
+
+
+def per_init_aligned(capacity: int, insert_block: int, example: Dict[str, torch.Tensor],
+                     device="cuda") -> PERState:
+    """PER buffer with a block-aligned physical layout: ``capacity`` rounded up
+    to a multiple of ``insert_block``, so that every
+    :func:`per_add_batch_aligned` of ``insert_block`` transitions is one slice
+    write at an aligned pointer and never wraps.  The live set (slots of
+    nonzero priority) is always the newest ``capacity`` transitions with their
+    priorities, as in a ``per_init(capacity)`` ring; older slots keep their
+    storage until overwritten but have priority 0, so sampling never reaches
+    them (PARITY_TORCH.md section 18)."""
+    return per_init(_aligned_capacity(capacity, insert_block), example, device)
+
+
+def per_init_aligned_fm(capacity: int, insert_block: int, example: Dict[str, torch.Tensor],
+                        device="cuda") -> PERState:
+    """Feature-major twin of :func:`per_init_aligned` (slot axis last); fill it
+    with ``per_add_batch_aligned(..., slot_axis=-1)``."""
+    return per_init_fm(_aligned_capacity(capacity, insert_block), example, device)
 
 
 def _empty_state(storage: Dict[str, torch.Tensor], capacity: int, device) -> PERState:
@@ -108,18 +148,51 @@ def per_add(state: PERState, item) -> PERState:
     return per_add_batch(state, _one(item, state.storage))
 
 
-def per_add_batch(state: PERState, items: Dict[str, torch.Tensor]) -> PERState:
-    """Batch insert at the current max priority (1.0 in an empty buffer), in place."""
-    n = next(iter(items.values())).shape[0]
+def per_add_batch(state: PERState, items: Dict[str, torch.Tensor], slot_axis: int = 0) -> PERState:
+    """Batch insert at the current max priority (1.0 in an empty buffer), in place.
+
+    ``slot_axis`` is the storage's slot axis: 0 for :func:`per_init` buffers,
+    -1 for :func:`per_init_fm` ones (1-D leaves are the same either way)."""
+    n = next(iter(items.values())).shape[slot_axis]
     cap = state.capacity
     if n > cap:
         raise ValueError(f"batch of {n} transitions exceeds buffer capacity {cap}")
     priority = _insert_priority(state)
     for k, buf in state.storage.items():
-        circular_write(buf, items[k], state.ptr)
+        circular_write(buf, items[k], state.ptr, axis=slot_axis)
     circular_write(state.priorities, priority.expand(n), state.ptr)
     return PERState(state.storage, state.priorities, (state.ptr + n) % cap,
                     min(state.size + n, cap), state.beta)
+
+
+def per_add_batch_aligned(state: PERState, items: Dict[str, torch.Tensor], capacity: int,
+                          slot_axis: int = 0) -> PERState:
+    """Aligned batch insert into a :func:`per_init_aligned` (or ``_fm``) buffer
+    at the current max priority, in place.
+
+    ``capacity`` is the LOGICAL capacity; the buffer's physical capacity must
+    be a multiple of this batch's ``n`` transitions and lie in ``[capacity,
+    capacity + n)``.  The batch is one slice write at ``ptr``; then the ``phys
+    - capacity`` slots from the new ``ptr`` (the oldest, next to be
+    overwritten) get priority 0, which evicts them as the ring's wrapping
+    write would.  ``size`` saturates at ``capacity``; ``ptr`` advances mod
+    the physical capacity.  ``slot_axis`` as in :func:`per_add_batch`.
+    """
+    n = next(iter(items.values())).shape[slot_axis]
+    phys = state.capacity
+    if phys % n != 0:
+        raise ValueError(f"aligned insert of {n} rows into physical capacity {phys}: "
+                         f"capacity must be a multiple of the insert block")
+    if not capacity <= phys < capacity + n:
+        raise ValueError(f"physical capacity {phys} is not capacity..capacity+block for "
+                         f"logical capacity {capacity} and block {n}")
+    priority = _insert_priority(state)
+    for k, buf in state.storage.items():
+        buf.narrow(slot_axis % buf.ndim, state.ptr, n).copy_(items[k])
+    state.priorities[state.ptr: state.ptr + n] = priority
+    nxt = (state.ptr + n) % phys
+    state.priorities[nxt: nxt + phys - capacity] = 0.0   # phys - capacity < n: never wraps
+    return PERState(state.storage, state.priorities, nxt, min(state.size + n, capacity), state.beta)
 
 
 def per_mark_batch(state: PERState, storage: Dict[str, torch.Tensor], n: int) -> PERState:
@@ -169,8 +242,8 @@ def per_sample(state: PERState, u: torch.Tensor, n: int, slot_axis: int = 0
 
     Returns ``(state', indices, importance_weights, batch)``; ``state'`` only
     differs in the annealed beta.  ``slot_axis`` is 0 for :func:`per_init`
-    buffers and -1 for :func:`per_init_kd` ones (the batch then keeps the
-    minibatch axis last, e.g. ``state [S_PAD, n]``).
+    buffers and -1 for :func:`per_init_fm` and :func:`per_init_kd` ones (the
+    batch then keeps the minibatch axis last, e.g. ``state [S, n]``).
     """
     pri = state.priorities
     total = pri.sum()

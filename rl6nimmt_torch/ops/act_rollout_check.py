@@ -8,7 +8,8 @@ observations must agree exactly (asserted); the action and final-score
 agreement fractions are returned (callers gate on >= 0.999; the budget
 covers float rounding of near-ties between the two summation orders).
 :func:`insert_planes_agreement` holds K5's replay planes against the n-step
-harvest of K4's trajectory.
+harvests of K4's trajectory in both of its layouts; :func:`fm_agreement`
+holds K4's feature-major emit against its row-major one.
 """
 
 from __future__ import annotations
@@ -68,22 +69,39 @@ def greedy_replay_agreement(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, p
     return action_agree, score_agree
 
 
+def fm_agreement(cfg: EnvConfig, num_games: int, hidden: int, seed: int, weights) -> None:
+    """K4's feature-major outputs against its row-major outputs permuted, on
+    one seed and one set of per-turn weights: equal bit for bit (the two
+    entries play the same games through the same loop).  Raises
+    ``AssertionError`` on a mismatch; runs on the device of ``weights``."""
+    from .act_rollout_kernel import to_feature_major
+
+    fm = make_act_rollout_kernel(cfg, num_games, hidden, feature_major=True)(seed, *weights)
+    rm = to_feature_major(*make_act_rollout_kernel(cfg, num_games, hidden)(seed, *weights))
+    for name, a, b in zip(("obs", "actions", "rewards"), fm, rm):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"K4 feature-major {name} differ from the row-major ones permuted "
+                                 f"(G={num_games}, hidden {hidden})")
+
+
 def insert_planes_agreement(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, params,
                             num_games: int, capacity: int, seed: int, ptr: int, turn_noise,
                             gamma: float = 0.99, sentinel: int = -7) -> float:
     """K5's replay planes against K4's trajectory on the same seed and weights.
 
     K5 writes into planes pre-filled with ``sentinel``.  Its ``rewards`` must
-    equal K4's; under the column map (:func:`insert_columns`) its states, next
-    states, actions and done must equal the row-major harvest
-    (:func:`..runtime.vector.to_transitions`) of K4's trajectory bit for bit
-    and its n-step rewards within ``atol=1e-3`` (the recursion and the
-    windowed sum round differently); pad rows must be zero and the unwritten
-    columns must still hold the sentinel.  Raises ``AssertionError`` on any
+    equal K4's in both layouts; under the column map (:func:`insert_columns`)
+    its states, next states, actions and done must equal, bit for bit, both
+    the row-major harvest (:func:`..runtime.vector.to_transitions`) of K4's
+    row-major trajectory and the feature-major harvest
+    (:func:`..runtime.vector.to_transitions_fm`) of K4's feature-major one,
+    and its n-step rewards must be within ``atol=1e-3`` of each (the
+    recursion and the windowed sum round differently); pad rows must be zero
+    and the unwritten columns must still hold the sentinel.  Raises ``AssertionError`` on any
     mismatch; returns the largest reward difference.  Runs on the device of
     ``params``.
     """
-    from ..runtime.vector import to_transitions
+    from ..runtime.vector import to_transitions, to_transitions_fm
     from .act_rollout_kernel import S_PAD, SCAL_ROWS, insert_columns, make_act_insert_kernel
 
     G, T, P, S = num_games, cfg.max_turns, cfg.num_players, cfg.state_length
@@ -101,18 +119,27 @@ def insert_planes_agreement(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, p
     if not torch.equal(rew, rewards.permute(0, 2, 1).reshape(T * P, G)):
         raise AssertionError("K5 rewards differ from K4's on the same seed")
 
+    obs_fm, act_fm, rew_fm = make_act_rollout_kernel(cfg, G, spec.hidden_sizes[0], feature_major=True)(seed, *args)
+    if not torch.equal(rew, rew_fm):
+        raise AssertionError("K5 rewards differ from K4's feature-major ones on the same seed")
+
     rm = to_transitions(cfg, gamma, dqn_cfg.n_steps, True,
                         obs[:T], actions, rewards.to(torch.float32), obs[1:])
-    want = {k: column_order(v, T, G, P) for k, v in rm.items()}     # [..., T, P, G]
+    fm = to_transitions_fm(cfg, gamma, dqn_cfg.n_steps, True, obs_fm, act_fm, rew_fm)
+    harvests = {"row-major": {k: column_order(v, T, G, P) for k, v in rm.items()},     # [..., T, P, G]
+                "feature-major": {k: v.reshape(v.shape[:-1] + (T, P, G)) for k, v in fm.items()}}
     cols = insert_columns(cfg, G, capacity, ptr, dev)                 # [T, P, G]
-    checks = {"state": (st[:S, cols], want["state"]), "next_state": (nx[:S, cols], want["next_state"]),
-              "action": (sc[1, cols], want["action"].to(torch.float32)), "done": (sc[2, cols], want["done"])}
-    for name, (got, ref) in checks.items():
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K5 {name} plane differs from K4's n-step harvest")
-    reward_err = float((sc[0, cols] - want["reward"]).abs().max())
-    if not reward_err <= 1e-3:
-        raise AssertionError(f"K5 n-step rewards differ from the harvest by {reward_err}")
+    reward_err = 0.0
+    for layout, want in harvests.items():
+        checks = {"state": (st[:S, cols], want["state"]), "next_state": (nx[:S, cols], want["next_state"]),
+                  "action": (sc[1, cols], want["action"].to(torch.float32)), "done": (sc[2, cols], want["done"])}
+        for name, (got, ref) in checks.items():
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K5 {name} plane differs from the {layout} n-step harvest of K4's games")
+        err = float((sc[0, cols] - want["reward"]).abs().max())
+        if not err <= 1e-3:
+            raise AssertionError(f"K5 n-step rewards differ from the {layout} harvest by {err}")
+        reward_err = max(reward_err, err)
     if not (torch.all(st[S:, cols] == 0) and torch.all(nx[S:, cols] == 0) and torch.all(sc[3:, cols] == 0)):
         raise AssertionError("K5 left a nonzero pad row")
     unwritten = torch.ones(capacity, dtype=torch.bool, device=dev)

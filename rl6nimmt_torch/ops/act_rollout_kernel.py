@@ -2,7 +2,11 @@
 
 ``make_act_rollout_kernel(cfg, num_games, hidden)`` returns ``play(seed, w1
 [T,S,Hd], b1 [T,Hd], wa [T,Hd,A], ba [T,A]) -> (obs int8 [T+1,G,P,S],
-actions int32 [T,G,P], rewards int32 [T,G,P])`` with ``T = cfg.max_turns``.
+actions int32 [T,G,P], rewards int32 [T,G,P])`` with ``T = cfg.max_turns``;
+with ``feature_major=True`` it returns the same values in JAX's
+feature-major layout, ``(obs int8 [S, (T+1)*P, G], actions int32 [T*P, G],
+rewards int32 [T*P, G])``, rows in (f, t, p) order and games last: what the
+feature-major replay insert takes with no relayout.
 The games are dealt from ``seed`` by the same Philox deal as K2, so
 ``deal_games(seed)`` reproduces them.  Each turn every seat acts greedily on
 the advantage head of that turn's effective weights (the dueling ``V -
@@ -12,9 +16,11 @@ legal-masked row.
 
 On CUDA weights it launches ``csrc/act_rollout_kernel.cu`` (a CUDA block's
 games share one forward spread over its threads; the built library's
-``rl6_play_games()`` says how many); on CPU weights it runs
-:func:`act_rollout_plain`.  Row-major layout only (the TPU's
-``feature_major`` layout was a lane-layout device).
+``rl6_play_games()`` says how many): the entry ``rl6_act_rollout`` for the
+row-major layout, ``rl6_act_rollout_fm`` (the same play loop, emitter
+``csrc/feature_major_emit.cuh``) for the feature-major one, each with its own
+launch counter.  On CPU weights it runs :func:`act_rollout_plain` or
+:func:`act_rollout_fm_plain`.
 
 ``make_act_insert_kernel(cfg, num_games, hidden, capacity, gamma, n_steps,
 reward_lag)`` returns ``insert(seed, ptr, w1, b1, wa, ba, state, next, scal)
@@ -42,6 +48,7 @@ NEG_INF = -1e9
 MAX_HIDDEN = 256
 
 _ROLLOUT = _build.Launcher("rl6_act_rollout", "act_rollout")
+_ROLLOUT_FM = _build.Launcher("rl6_act_rollout_fm", "act_rollout_fm")
 _INSERT = _build.Launcher("rl6_act_insert", "act_insert")
 
 
@@ -62,6 +69,20 @@ def act_rollout_plain(cfg: EnvConfig, seed: int, num_games: int, w1, b1, wa, ba)
         rewards_all.append(rewards)
     obs_all.append(observe(cfg, state)[0].to(torch.int8))
     return torch.stack(obs_all), torch.stack(actions_all), torch.stack(rewards_all)
+
+
+def to_feature_major(obs, actions, rewards):
+    """K4's row-major outputs ``[T+1, G, P, S]``, ``[T, G, P]`` in the
+    feature-major layout ``[S, (T+1)*P, G]``, ``[T*P, G]`` (contiguous)."""
+    T1, G, P, S = obs.shape
+    return (obs.permute(3, 0, 2, 1).reshape(S, T1 * P, G).contiguous(),
+            actions.permute(0, 2, 1).reshape(-1, G).contiguous(),
+            rewards.permute(0, 2, 1).reshape(-1, G).contiguous())
+
+
+def act_rollout_fm_plain(cfg: EnvConfig, seed: int, num_games: int, w1, b1, wa, ba):
+    """Plain twin of K4's feature-major emit: the row-major twin's outputs permuted."""
+    return to_feature_major(*act_rollout_plain(cfg, seed, num_games, w1, b1, wa, ba))
 
 
 def _check_tensors(kernel: str, device, specs):
@@ -92,28 +113,36 @@ def _check_kernel_cfg(cfg: EnvConfig, hidden: int):
     _check_cfg(cfg)
 
 
-def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int):
-    """Build ``play(seed, w1, b1, wa, ba)`` for ``num_games`` games (any G)."""
+def make_act_rollout_kernel(cfg: EnvConfig, num_games: int, hidden: int, feature_major: bool = False):
+    """Build ``play(seed, w1, b1, wa, ba)`` for ``num_games`` games (any G),
+    in the row-major or (``feature_major``) the feature-major layout."""
     _check_kernel_cfg(cfg, hidden)
     G, P, S = num_games, cfg.num_players, cfg.state_length
     n_turns = cfg.max_turns
+    name = "act_rollout_fm" if feature_major else "act_rollout"
+    if feature_major:
+        plain, launch = act_rollout_fm_plain, _ROLLOUT_FM
+        shapes = ((S, (n_turns + 1) * P, G), (n_turns * P, G))
+    else:
+        plain, launch = act_rollout_plain, _ROLLOUT
+        shapes = ((n_turns + 1, G, P, S), (n_turns, G, P))
 
     def play(seed, w1, b1, wa, ba):
         seed = _check_seed(seed)
         if w1.device.type == "cpu":
-            return act_rollout_plain(cfg, seed, G, w1, b1, wa, ba)
+            return plain(cfg, seed, G, w1, b1, wa, ba)
         if w1.device.type != "cuda":
-            raise ValueError(f"act_rollout: unsupported device {w1.device}")
-        _check_tensors("act_rollout", w1.device, _weight_specs(cfg, hidden, w1, b1, wa, ba))
+            raise ValueError(f"{name}: unsupported device {w1.device}")
+        _check_tensors(name, w1.device, _weight_specs(cfg, hidden, w1, b1, wa, ba))
         dev = w1.device
-        obs = torch.empty((n_turns + 1, G, P, S), dtype=torch.int8, device=dev)
-        actions = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
-        rewards = torch.empty((n_turns, G, P), dtype=torch.int32, device=dev)
+        obs = torch.empty(shapes[0], dtype=torch.int8, device=dev)
+        actions = torch.empty(shapes[1], dtype=torch.int32, device=dev)
+        rewards = torch.empty(shapes[1], dtype=torch.int32, device=dev)
         if G:
-            _ROLLOUT(dev.index, seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-                     obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
-                     G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
-                     hidden, n_turns, int(cfg.include_summaries))
+            launch(dev.index, seed, w1.data_ptr(), b1.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                   obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
+                   G, P, cfg.num_rows, cfg.threshold, cfg.hand_size, cfg.num_cards,
+                   hidden, n_turns, int(cfg.include_summaries))
         return obs, actions, rewards
 
     return play

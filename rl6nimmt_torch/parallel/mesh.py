@@ -264,7 +264,7 @@ def make_dp_dqn_step(cfg: EnvConfig, dqn_cfg: DQNConfig, optimizer, games_per_de
     applies the mean of the ranks' gradients (one all-reduce an update, the
     loss riding along), and the cycle's mean score is averaged once more at
     its end.  Every mode of the local cycle (engine, ``kernel_act_rollout``,
-    ``kernel_insert``) works.
+    ``kernel_insert``, ``feature_major``, ``per_aligned_capacity``) works.
     """
     from ..runtime.vector import make_dqn_selfplay_step
 

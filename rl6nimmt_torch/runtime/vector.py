@@ -13,7 +13,9 @@
   lagged n-step harvest, a PER (or ring) insert, and ``learn_iters``
   double/dueling Bellman updates.  ``kernel_act_rollout=True`` plays the
   games in K4; ``kernel_insert=True`` plays the games AND writes the
-  transitions into the replay planes in K5.
+  transitions into the replay planes in K5; ``feature_major=True`` keeps the
+  replay slots on the last axis (:func:`to_transitions_fm`), and
+  ``per_aligned_capacity`` inserts into a block-aligned buffer.
 * :func:`make_reinforce_rollout` / :func:`make_reinforce_train_step` -- the
   action-in-input REINFORCE learner trained from every seat of every game
   (the fused-gradient step by default).
@@ -39,14 +41,14 @@ from torch.profiler import record_function
 from ..agents.dqn import (Adam, DQNConfig, grad_leaves, grads_of, learn_noise, make_learn_step, optimizer_apply,
                           q_network_spec, q_values)
 from ..agents.reinforce import action_in_input_logits, log_probs_and_entropy
-from ..buffers.per import per_add_batch, per_mark_batch, per_sample, per_update
+from ..buffers.per import per_add_batch, per_add_batch_aligned, per_mark_batch, per_sample, per_update
 from ..buffers.ring import ring_add_batch, ring_sample
 from ..buffers.sequence import seq_sample, seq_store_batch
 from ..engine.env import card_points_formula, deal, init_from_deck, observe, shift_hands, step
 from ..engine.state import EnvConfig
 from ..nets import MLPSpec, draw_mlp_noise, noisy_effective_params
 from ..ops.act_rollout_check import turn_slice
-from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_rollout_kernel
+from ..ops.act_rollout_kernel import TILE, make_act_insert_kernel, make_act_rollout_kernel, to_feature_major
 from ..ops.game_kernel import deal_games, play_random_games, random_pick_words, random_picks
 from ..ops.step_kernel import resolve_turn_t
 from ..utils.device import resolve_device
@@ -215,6 +217,53 @@ def to_transitions(cfg: EnvConfig, gamma: float, n_steps: int, reward_lag: bool,
     }
 
 
+def row_major_to_fm(obs, actions, rewards, next_obs):
+    """``[T, G, P, ...]`` trajectories in the layout K4's feature-major emit
+    gives: ``obs [S, (T+1)*P, G]`` (rows (f, t, p); the terminal observation is
+    ``next_obs[T-1]``), ``actions`` and ``rewards [T*P, G]``.  The adapter that
+    lets the engine rollout feed the feature-major cycle; it pays the
+    transposes that the kernel's emit avoids."""
+    T = obs.shape[0]
+    return to_feature_major(torch.cat([obs, next_obs[T - 1:T]], dim=0), actions, rewards)
+
+
+def to_transitions_fm(cfg: EnvConfig, gamma: float, n_steps: int, reward_lag: bool,
+                      obs_fm, actions_fm, rewards_fm) -> dict:
+    """:func:`to_transitions`' n-step math on the feature-major layout:
+    ``obs_fm [S, (T+1)*P, G]``, ``actions_fm``/``rewards_fm [T*P, G]`` ->
+    transitions with the slot axis last, in (t, p, g) order (``state [S, N]``,
+    scalars ``[N]``, ``N = T*P*G``).  Every output is a slice, reshape or
+    broadcast of the inputs, so the dict goes into ``per_add_batch(...,
+    slot_axis=-1)`` as it is."""
+    T, n = cfg.max_turns, n_steps
+    S, G = obs_fm.shape[0], obs_fm.shape[2]
+    P = obs_fm.shape[1] // (T + 1)
+    N = T * P * G
+    rew = rewards_fm.reshape(T, P, G).to(torch.float32)
+    if reward_lag:
+        rew = lag_rewards(rew)
+    padded = torch.cat([rew, rew.new_zeros((n - 1, P, G))]) if n > 1 else rew
+    disc = torch.tensor([gamma ** i for i in range(n)], dtype=torch.float32, device=rew.device)
+    R = sum(disc[i] * padded[i: i + T] for i in range(n))                # [T, P, G]
+    obs_r = obs_fm.reshape(S, T + 1, P, G)
+    if n >= T:
+        next_states = obs_r[:, T:].expand(S, T, P, G).reshape(S, N)
+    elif n > 1:
+        idx_next = torch.clamp(torch.arange(T, device=obs_fm.device) + n, max=T)
+        next_states = obs_r[:, idx_next].reshape(S, N)
+    else:
+        next_states = obs_r[:, 1:].reshape(S, N)
+    tail_start = (T - n + 1) if n > 1 else (T - 1)
+    done = (torch.arange(T, device=obs_fm.device) >= tail_start)[:, None, None].expand(T, P, G)
+    return {
+        "state": obs_fm[:, : T * P].reshape(S, N),
+        "action": actions_fm.reshape(N),
+        "reward": R.reshape(N),
+        "next_state": next_states,
+        "done": done.reshape(N).to(torch.float32),
+    }
+
+
 @dataclass
 class CycleRandomness:
     """Everything random one cycle consumes.
@@ -284,6 +333,16 @@ def make_dqn_selfplay_step(
 
     * ``per_init`` (PER configs) or ``ring_init``: row-major, slots in
       (t, g, p) order;
+    * ``per_init_fm`` with ``feature_major=True`` (PER configs): every leaf
+      with its slot axis last, slots in (t, p, g) order -- the same multiset
+      of transitions per cycle as row-major, in another slot order, so PER's
+      stratified draws land on other transitions (PARITY_TORCH.md section
+      18).  With ``kernel_act_rollout`` K4 emits the trajectory in this
+      layout; the engine rollout goes through :func:`row_major_to_fm`;
+    * ``per_init_aligned(cap, T*G*P, example)`` (or ``per_init_aligned_fm``
+      with ``feature_major``) with ``per_aligned_capacity=cap`` (PER
+      configs): each cycle's insert is one slice write that never wraps,
+      with the ring's live set (:func:`..buffers.per.per_add_batch_aligned`);
     * ``per_init_kd(cap, S_PAD, SCAL_ROWS)`` with ``kernel_insert=True``: K5
       plays the games from ``deal_seed`` and writes the finished transitions
       into the planes itself (noisy PER configs with one hidden layer,
@@ -294,8 +353,6 @@ def make_dqn_selfplay_step(
 
     ``kernel_act_rollout=True`` (noisy configs with one hidden layer) plays
     the games in K4 from ``deal_seed``; the engine path otherwise.
-    ``feature_major`` and ``per_aligned_capacity`` (the JAX package's TPU
-    replay layouts) are not ported.
 
     With ``axis_name`` (a process group or a tuple of them, see
     :func:`~..parallel.mesh.make_dp_dqn_step`) every Bellman update averages
@@ -304,9 +361,8 @@ def make_dqn_selfplay_step(
     """
     T, P, G = cfg.max_turns, cfg.num_players, num_games
     n = dqn_cfg.n_steps
-    if feature_major or per_aligned_capacity is not None:
-        raise NotImplementedError("feature_major / per_aligned_capacity: TPU replay layouts "
-                                  "with no GPU workload, see ROADMAP queue 1 item 1")
+    if feature_major and not dqn_cfg.per:
+        raise ValueError("feature_major replay requires a PER config (per_init_fm / per_init_aligned_fm storage)")
     if kernel_insert:
         if not dqn_cfg.per:
             raise ValueError("kernel_insert requires a PER config (per_init_kd storage)")
@@ -316,8 +372,8 @@ def make_dqn_selfplay_step(
             raise ValueError("kernel_insert supports one hidden layer")
         if n < T:
             raise ValueError("kernel_insert requires n_steps >= max_turns")
-        if kernel_act_rollout:
-            raise ValueError("kernel_insert subsumes kernel_act_rollout; pass kernel_insert alone")
+        if kernel_act_rollout or feature_major:
+            raise ValueError("kernel_insert subsumes kernel_act_rollout/feature_major; pass kernel_insert alone")
         if G % TILE != 0:
             raise ValueError(f"kernel_insert requires num_games % {TILE} == 0 (got {G})")
     if kernel_act_rollout:
@@ -331,7 +387,9 @@ def make_dqn_selfplay_step(
     eff_spec = dataclasses.replace(spec, noisy=False)
     learn_step = make_learn_step(dqn_cfg, spec, optimizer, gamma, axis_name=axis_name)
     adv_head = 1 if dqn_cfg.dueling else 0
-    play_kernel = make_act_rollout_kernel(cfg, G, hidden=dqn_cfg.hidden_sizes[0]) if kernel_act_rollout else None
+    play_kernel = make_act_rollout_kernel(cfg, G, hidden=dqn_cfg.hidden_sizes[0],
+                                          feature_major=feature_major) if kernel_act_rollout else None
+    slot_axis = -1 if (feature_major or kernel_insert) else 0
 
     def initial_state(rnd: CycleRandomness):
         if rnd.decks is not None:
@@ -375,6 +433,8 @@ def make_dqn_selfplay_step(
 
     def rollout_kernel(params, rnd: CycleRandomness, store_dtype):
         obs_all, actions, rewards_i = play_kernel(rnd.deal_seed, *act_weights(params, rnd))
+        if feature_major:   # K4's feature-major triple, straight to the harvest
+            return obs_all, actions, rewards_i
         obs = obs_all[:T].to(store_dtype)
         next_obs = obs_all[1:].to(store_dtype)
         return obs, actions, rewards_i.to(torch.float32), next_obs, rewards_i.sum(dim=0)
@@ -382,8 +442,7 @@ def make_dqn_selfplay_step(
     def learn_once(carry, t: int, u, noise):
         params, target_params, opt_state, buf = carry
         if dqn_cfg.per:
-            buf, idx, weights, batch = per_sample(buf, u, dqn_cfg.minibatch,
-                                                  slot_axis=-1 if kernel_insert else 0)
+            buf, idx, weights, batch = per_sample(buf, u, dqn_cfg.minibatch, slot_axis=slot_axis)
         else:
             idx, batch = ring_sample(buf, u)
             weights = torch.ones(dqn_cfg.minibatch, dtype=torch.float32, device=dev)
@@ -398,11 +457,13 @@ def make_dqn_selfplay_step(
                 "done": batch["scalars"][2],
             }
         else:
+            # Feature-major batches arrive [S, n]: back to rows for the learn math.
+            rows = (lambda x: x.T) if feature_major else (lambda x: x)
             batch = {
-                "state": batch["state"].to(torch.float32),
+                "state": rows(batch["state"].to(torch.float32)),
                 "action": batch["action"].to(torch.int64),
                 "reward": batch["reward"].to(torch.float32),
-                "next_state": batch["next_state"].to(torch.float32),
+                "next_state": rows(batch["next_state"].to(torch.float32)),
                 "done": batch["done"].to(torch.float32),
             }
         batch["weights"] = weights
@@ -430,6 +491,19 @@ def make_dqn_selfplay_step(
                                      T * G * P)
             return buf, planes[3].reshape(T, P, G).to(torch.float32).sum(dim=0)
         store_dtype = buf.storage["state"].dtype
+        if feature_major:
+            with record_function("cycle.rollout"):
+                if kernel_act_rollout:
+                    obs_fm, actions_fm, rewards_fm = rollout_kernel(params, rnd, store_dtype)
+                else:
+                    obs_fm, actions_fm, rewards_fm = row_major_to_fm(*rollout(params, rnd, eps, store_dtype)[:4])
+            with record_function("cycle.insert"):
+                transitions = to_transitions_fm(cfg, gamma, n, reward_lag, obs_fm, actions_fm, rewards_fm)
+                if per_aligned_capacity is not None:
+                    buf = per_add_batch_aligned(buf, transitions, per_aligned_capacity, slot_axis=-1)
+                else:
+                    buf = per_add_batch(buf, transitions, slot_axis=-1)
+            return buf, rewards_fm.reshape(T, P, G).to(torch.float32).sum(dim=0)
         with record_function("cycle.rollout"):
             if kernel_act_rollout:
                 obs, actions, rewards, next_obs, scores = rollout_kernel(params, rnd, store_dtype)
@@ -437,7 +511,12 @@ def make_dqn_selfplay_step(
                 obs, actions, rewards, next_obs, scores = rollout(params, rnd, eps, store_dtype)
         with record_function("cycle.insert"):
             transitions = to_transitions(cfg, gamma, n, reward_lag, obs, actions, rewards, next_obs)
-            buf = per_add_batch(buf, transitions) if dqn_cfg.per else ring_add_batch(buf, transitions)
+            if dqn_cfg.per and per_aligned_capacity is not None:
+                buf = per_add_batch_aligned(buf, transitions, per_aligned_capacity)
+            elif dqn_cfg.per:
+                buf = per_add_batch(buf, transitions)
+            else:
+                buf = ring_add_batch(buf, transitions)
         return buf, scores
 
     def cycle(params, target_params, opt_state, buf, rng, eps, step0: int = 0):

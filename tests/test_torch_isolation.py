@@ -59,7 +59,11 @@ def test_module_list_covers_the_ported_slice():
               # data parallel and the host extras
               "parallel", "parallel.mesh", "parallel.launch", "runtime.dp_check", "experiments.multiprocess_dp",
               "utils.various", "nets.cnn", "runtime.metrics", "parity", "parity.harness", "parity.refenv",
-              "runtime.callback_human", "experiments.train_selfplay"):
+              "runtime.callback_human", "experiments.train_selfplay",
+              # the feature-major and block-aligned replay layouts and the scripts' twins
+              "experiments.fm_cycle_bench", "experiments.micro_insert", "experiments.fm_strength_ab",
+              "experiments.train_puct_prior", "experiments.long_train_eval", "experiments.strength_vs_budget",
+              "experiments.play_human"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -108,6 +112,9 @@ def test_cuda_entry_points_raise_without_a_card():
     from rl6nimmt_torch.parallel import (make_dp_acer_step, make_dp_dqn_step, make_dp_reinforce_step, make_mesh,
                                          make_mesh_2level)
     from rl6nimmt_torch.runtime.callback_human import make_callback_human_game, play_callback_game
+    from rl6nimmt_torch.buffers import per_init_aligned, per_init_aligned_fm, per_init_fm
+    from rl6nimmt_torch.experiments import (fm_cycle_bench, fm_strength_ab, long_train_eval, micro_insert,
+                                            play_human, strength_vs_budget, train_puct_prior)
 
     cfg = EnvConfig(4)
     cpu_hamster = DrunkHamster(seed=0, device="cpu")
@@ -201,6 +208,20 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: play_callback_game(["random"]),
         lambda: train_selfplay.run(["--steps", "1"]),
         lambda: train_selfplay.main(["--dp", "--steps", "1"]),
+        # the feature-major and block-aligned replay layouts and the scripts' twins
+        lambda: per_init_fm(16, dqn_replay_example(cfg)),
+        lambda: per_init_aligned(16, 8, dqn_replay_example(cfg)),
+        lambda: per_init_aligned_fm(16, 8, dqn_replay_example(cfg)),
+        lambda: make_dqn_selfplay_step(cfg, DQNConfig(per=True), Adam(), 8, feature_major=True,
+                                       per_aligned_capacity=16),
+        lambda: fm_cycle_bench.main([]),
+        lambda: micro_insert.main([]),
+        lambda: fm_strength_ab.main([]),
+        lambda: train_puct_prior.main([]),
+        lambda: long_train_eval.main([]),
+        lambda: strength_vs_budget.main([]),
+        lambda: play_human.main([]),
+        lambda: play_human.main(["--device-game"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -227,13 +248,11 @@ def _exports_with_jax_blocked(package):
 
 
 # JAX names the port leaves out, each for a stated reason: the vmap/jit
-# wrappers need no port (ROADMAP queue 1), the feature-major and aligned PER
-# layouts are item 1's parked remainder; the K1 factories have the port names
+# wrappers need no port (ROADMAP queue 1); the K1 factories have the port names
 # resolve_turn / resolve_turn_t (PARITY_TORCH.md section 11).  parity's
 # refload.py is not ported and exports nothing at the package level.
 NOT_EXPORTED = {
     "rl6nimmt_torch.engine": {"batched", "jitted_core"},
-    "rl6nimmt_torch.buffers": {"per_add_batch_aligned", "per_init_aligned", "per_init_aligned_fm", "per_init_fm"},
     "rl6nimmt_torch.ops": {"make_turn_resolver", "make_turn_resolver_t"},
 }
 

@@ -10,13 +10,14 @@ import pytest
 import torch
 
 from rl6nimmt_torch.agents.dqn import Adam, DQNConfig, q_network_spec
-from rl6nimmt_torch.buffers import per_init, per_init_kd
+from rl6nimmt_torch.buffers import per_init, per_init_aligned_fm, per_init_fm, per_init_kd
 from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
 from rl6nimmt_torch.experiments.probe_ops import compare, probe_inputs, probes
 from rl6nimmt_torch.engine import EnvConfig, deal, observe, step
 from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
 from rl6nimmt_torch.ops import _build
 from rl6nimmt_torch.ops.act_rollout_check import (
+    fm_agreement,
     greedy_replay_agreement,
     insert_planes_agreement,
     insert_twin_agreement,
@@ -216,6 +217,77 @@ def test_k4_act_rollout_matches_twin(num_players, G, hidden, shape):
     agree = (ak == ap).all(dim=(0, 2))                      # games whose actions all agree
     assert (ak == ap).float().mean().item() >= 0.999
     assert torch.equal(ok[:, agree], op[:, agree]) and torch.equal(rk[:, agree], rp[:, agree])
+
+
+# K4's feature-major emit: the flagship games, a ragged last block (4000 = 125 blocks
+# of 32) and one game past a block (33), at one chunk of the hidden layer and four.
+K4_FM_CASES = [(G, hidden) for G in (4096, 4000, 33) for hidden in (64, 256)]
+
+
+@pytest.mark.parametrize("G,hidden", K4_FM_CASES)
+def test_k4_fm_matches_row_major_and_twin(G, hidden):
+    """K4 feature-major == K4 row-major permuted, bit for bit; against its twin
+    (the row-major twin permuted) equal in every game whose actions agree."""
+    from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_fm_plain
+
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    T, P, S = cfg.max_turns, cfg.num_players, cfg.state_length
+    args = _k4_args(dev, cfg, hidden)
+    fm_agreement(cfg, G, hidden, 23, args)
+    ok, ak, rk = make_act_rollout_kernel(cfg, G, hidden, feature_major=True)(23, *args)
+    op, ap, rp = act_rollout_fm_plain(cfg, 23, G, *args)
+    assert ok.shape == (S, (T + 1) * P, G) and ak.shape == rk.shape == (T * P, G)
+    assert torch.equal(ok[:, :P], op[:, :P])                # same deals: the t = 0 observations
+    agree = (ak == ap).all(dim=0)
+    assert (ak == ap).float().mean().item() >= 0.999
+    assert torch.equal(ok[..., agree], op[..., agree]) and torch.equal(rk[:, agree], rp[:, agree])
+
+
+@pytest.mark.parametrize("offset", [1, 5, 16])
+def test_k4_fm_entry_writes_misaligned_outputs(offset):
+    """The feature-major entry stores bytes and ints one a lane, so outputs
+    that start ``offset`` bytes (obs) or ints (actions, rewards) past an
+    aligned address get the same values (G = 4000: a ragged last block)."""
+    from rl6nimmt_torch.ops.act_rollout_kernel import _ROLLOUT_FM
+
+    dev = _cuda()
+    cfg, G, hidden = EnvConfig(4), 4000, 64
+    T, P, S = cfg.max_turns, cfg.num_players, cfg.state_length
+    args = _k4_args(dev, cfg, hidden)
+    want = make_act_rollout_kernel(cfg, G, hidden, feature_major=True)(29, *args)
+    raw_obs = torch.full((S * (T + 1) * P * G + offset,), -7, dtype=torch.int8, device=dev)
+    raw_act = torch.full((T * P * G + offset,), -7, dtype=torch.int32, device=dev)
+    raw_rew = torch.full((T * P * G + offset,), -7, dtype=torch.int32, device=dev)
+    _ROLLOUT_FM(dev.index or 0, 29, *(x.data_ptr() for x in args), raw_obs[offset:].data_ptr(),
+                raw_act[offset:].data_ptr(), raw_rew[offset:].data_ptr(), G, P, cfg.num_rows, cfg.threshold,
+                cfg.hand_size, cfg.num_cards, hidden, T, int(cfg.include_summaries))
+    torch.cuda.synchronize()
+    for raw, w in zip((raw_obs, raw_act, raw_rew), want):
+        assert bool((raw[:offset] == -7).all())
+        assert torch.equal(raw[offset:].view(w.shape), w)
+
+
+@pytest.mark.parametrize("aligned", [False, True], ids=["kernel_fm", "kernel_fm_aligned"])
+def test_fm_cycle_runs_through_k4_fm(aligned):
+    dev = _cuda()
+    cfg, dqn, spec, params, _ = _flagship_weights(dev)
+    adam = Adam(1e-3)
+    G, cap = 1024, 200_000
+    block = G * cfg.max_turns * cfg.num_players
+    example = dqn_replay_example(cfg)
+    buf = per_init_aligned_fm(cap, block, example, device=dev) if aligned else per_init_fm(cap, example, device=dev)
+    cycle = make_dqn_selfplay_step(cfg, dqn, adam, G, learn_iters=8, kernel_act_rollout=True, feature_major=True,
+                                   per_aligned_capacity=cap if aligned else None, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, t, o = params, params, adam.init(params)
+    for c in range(2):
+        _build.reset_launches()
+        p, t, o, buf, m = cycle(p, t, o, buf, gen, 0.0, c * 8)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"act_rollout_fm": 1}
+        assert bool(torch.isfinite(m["loss"]))
+    assert (buf.size, buf.ptr) == (min(2 * block, cap), 2 * block % buf.capacity)
 
 
 def test_greedy_replay_agreement_on_card():
