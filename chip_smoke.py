@@ -138,14 +138,29 @@ process per source), then:
    1,024 eval games), ``train_puct_prior`` (2 iterations of 64 games at mc_max
    128, a 32-game head-to-head), ``long_train_eval`` (both algorithms, a few
    updates and evals), ``strength_vs_budget`` (2 games at mc_max 32 against
-   16) and ``play_human --device-game`` with a scripted human.
+   16) and ``play_human --device-game`` with a scripted human;
+13. runs the ``main()`` of each evaluation, A/B and profiling script's twin at
+   the published widths and a cut depth (each cut in the log), with its checks
+   (win rates in [0, 1], scores in [-1040, 0]) and its exact K1/K2 launches:
+   ``device_learn_strength_ab`` (1 seed, 16 games in blocks of 8, 1,024 eval
+   games, every family; REINFORCE's arms bit-equal), ``device_learn_speedup``
+   (16 games in blocks of 8, and 2 pairs; ``DeviceBlockSession.finalize``
+   restored), ``profile_devblock`` (2 blocks of 16 games at mc_max 32),
+   ``budget_saturation`` (budgets 8 and 16 against 32, 32 games),
+   ``devblock_attrib`` (32 games at mc_max 32, 1 rep), ``prior_decoupled_eval``
+   (32 games at budget 16, A-D), ``puct_batch_ab`` (32 games, 2 keys, K 8 and
+   16 at mc_max 32; every arm dealt the same games), ``devroot_equivalence``
+   (2 games at mc_max 16, ``puct`` and ``mcs``) and ``acer_onpolicy_ab`` (2
+   cycles an arm at G=4096, 1,024 eval games; peak device memory); then K1
+   and K2 against their twins at every shape the scripts launched them at.
 
-Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp`` and ``scripts`` JSON lines, one JSON line
-of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
+Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp``, ``scripts`` and ``evals`` JSON lines,
+one JSON line of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
 K2's rows their launches on the search, the learners', the tournament's and the
 arena's path, K1's row-major, K2's, K4's in both layouts and K5's on the DP
-path, and K1's, K2's, K4's and K5's on the scripts' path), the
+path, K1's, K2's, K4's and K5's on the scripts' path, and K1's and K2's on the
+evaluation scripts' path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -1416,6 +1431,210 @@ def scripts_phase(dev, card):
     return line, path
 
 
+def evals_phase(dev, card):
+    """Phase 13: the ``main()`` of each evaluation, A/B and profiling script's
+    twin on the card at a cut depth, the widths the published ones (each cut
+    stated in the log), with its checks; every counter is set to 0 just before
+    each script and read just after, and held to the script's exact K1/K2
+    launches: a device block group's from its lineups (``block_launches``), a
+    match's from its seats' budgets (``playout_turns_per_seat``), a host game's
+    from its searches (``host_search_turns``).  Last, K1 and K2 against their
+    twins at every shape the scripts launched them at.  Returns the ``evals``
+    line, the launches summed over the scripts and the largest K1/K2
+    differences from their twins."""
+    import contextlib
+    import io
+    import tempfile
+
+    from rl6nimmt_torch.agents import MCSAgent, PUCTAgent
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments import (acer_onpolicy_ab, budget_saturation, devblock_attrib,
+                                            device_learn_speedup, device_learn_strength_ab, devroot_equivalence,
+                                            prior_decoupled_eval, profile_devblock, puct_batch_ab)
+    from rl6nimmt_torch.ops import _build, game_kernel, step_kernel
+    from rl6nimmt_torch.runtime import device_match, device_tournament as dtm
+    from rl6nimmt_torch.runtime.device_match import playout_turns_per_seat
+
+    line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
+    cfg4, cfg2 = EnvConfig(4), EnvConfig(2)
+    T = cfg4.max_turns
+    match = lambda k2, k1: {"deal_games": k2, "resolve_turn": k1}
+    in_unit = lambda *xs: all(0.0 <= x <= 1.0 for x in xs)
+    in_scores = lambda *xs: all(-10 * 104 <= x <= 0 for x in xs)
+    # Every device block session a script dispatches, for its groups' launches.
+    sessions, real_dispatch = [], dtm.DeviceBlockSession.dispatch
+
+    def dispatch(self):
+        sessions.append(self)
+        return real_dispatch(self)
+
+    # The game configuration and games of every K1 and K2 launch the scripts make (the launchers'
+    # trailing arguments: K1 G, P, R, T; K2 G, P, R, T, H, N), for the twin checks at those shapes.
+    shapes, real_k1, real_k2 = {}, step_kernel._ROW_MAJOR, game_kernel._DEAL
+
+    def recording(launcher, shape):
+        def launch(device_index, *args):
+            cfg, games = shape(*args)
+            shapes.setdefault(cfg, set()).add(games)
+            return launcher(device_index, *args)
+        return launch
+
+    step_kernel._ROW_MAJOR = recording(real_k1, lambda *a: (EnvConfig(a[-3], a[-2], threshold=a[-1]), a[-4]))
+    game_kernel._DEAL = recording(real_k2, lambda *a: (EnvConfig(a[-5], a[-4], a[-1], a[-3], hand_size=a[-2]),
+                                                       a[-6]))
+
+    def blocks_launches():
+        got = {"deal_games": 0, "resolve_turn": 0}
+        for s in sessions:
+            for k, v in block_launches(s, s.single_round_cap)[0].items():
+                got[k] += v
+        return got
+
+    def run(name, cut, argv, want, main):
+        """``want``: the launches, or a function of the run's sessions giving them."""
+        torch.cuda.synchronize()
+        sessions.clear()
+        _build.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in got.items():
+            path[k] += v
+        want = want() if callable(want) else want
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        line[name] = {"argv": argv, "cut": cut, "seconds": secs, "launches": got}
+        log(f"[13] {name} {' '.join(argv)} ({cut}): {secs:.2f} s, launches {got}")
+        for text in out.getvalue().strip().splitlines()[-8:]:
+            log(f"[13]   {text}")
+        return result
+
+    dtm.DeviceBlockSession.dispatch = dispatch
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # device_learn_strength_ab: per family two arms of 2 blocks of 8 games, then 2 arena matches
+            # against random seats and 2 head-to-head (K2 once and K1 ten times a match).
+            fams = device_learn_strength_ab.FAMILIES
+            arena = match(4 * len(fams), 4 * len(fams) * T)
+            res = run("device_learn_strength_ab", "1 seed, 16 games in blocks of 8, 1,024 eval games (not 6 seeds, "
+                      "240 games, 4,096)", ["--seeds", "1", "--games", "16", "--block", "8", "--eval-games", "1024",
+                                            "--out", os.path.join(tmp, "dls.json")],
+                      lambda: {k: v + arena[k] for k, v in blocks_launches().items()}, device_learn_strength_ab.main)
+            for fam in fams:
+                r = res[fam]
+                rates = r["win_vs_3_random_host"] + r["win_vs_3_random_device"] + r["head_to_head_device_rate"]
+                if not in_unit(*rates):
+                    raise AssertionError(f"device_learn_strength_ab {fam}: {r}")
+            if res["reinforce"]["final_params_bit_equal_per_seed"] != [True]:
+                raise AssertionError(f"device_learn_strength_ab: REINFORCE's arms differ: {res['reinforce']}")
+            line["device_learn_strength_ab"]["result"] = res
+            # device_learn_speedup: a warm-up block and one timed block of 8 games an arm, then 2 pairs.
+            original = dtm.DeviceBlockSession.finalize
+            for tag, extra in (("device_learn_speedup", []), ("device_learn_speedup_pairs", ["--pairs", "2"])):
+                res = run(tag, "16 games in blocks of 8 (not 1,000 in 100)" + (", 2 pairs" if extra else ""),
+                          ["--games", "16", "--block", "8", *extra, "--out", os.path.join(tmp, f"{tag}.json")],
+                          blocks_launches, device_learn_speedup.main)
+                if dtm.DeviceBlockSession.finalize is not original:
+                    raise AssertionError(f"{tag} left DeviceBlockSession.finalize patched")
+                line[tag]["result"] = res
+            r = line["device_learn_speedup"]["result"]
+            if not (r["host"]["ms_per_game"] > 0 and r["device"]["ms_per_game"] > 0):
+                raise AssertionError(f"device_learn_speedup: {r}")
+            # profile_devblock: the notebook population at mc_max 32, 2 blocks of 16 games.
+            res = run("profile_devblock", "2 blocks of 16 games at mc_max 32 (not 100 at 200)",
+                      ["--games", "16", "--mc-max", "32", "--blocks", "2"], blocks_launches, profile_devblock.main)
+            if [sum(g["games"] for g in b["groups"]) for b in res.values()] != [16, 16]:
+                raise AssertionError(f"profile_devblock: {res}")
+            line["profile_devblock"]["result"] = res
+            # budget_saturation: per budget two blocks (one a seat order); each turn one search call over
+            # both seats, as many rounds as the reference seat needs.
+            res = run("budget_saturation", "budgets 8 and 16 against 32, 32 games a seat order (not 7 budgets "
+                      "against 800, 512)", ["--budgets", "8,16", "--reference-budget", "32", "--games", "32",
+                                           "--out", os.path.join(tmp, "bs.json")],
+                      match(4, 4 * (T + playout_turns_per_seat(cfg2, 32))), budget_saturation.main)
+            if not all(in_unit(v["win_rate_vs_saturated"]) and v["games"] == 64 for v in res.values()):
+                raise AssertionError(f"budget_saturation: {res}")
+            line["budget_saturation"]["result"] = res
+            # devblock_attrib: 7 arms, one untimed and one timed block each, one search call a turn.
+            arm_k = {"random": None, "mcs": 8, "puct_uniform": 8, "puct": 8, "mcs/puct_free": 32,
+                     "mcs/pf+uni": 32, "puct/K32": 32}
+            res = run("devblock_attrib", "32 games at mc_max 32, 1 rep (not 200, 3)",
+                      ["--games", "32", "--mc-max", "32", "--reps", "1"],
+                      match(2 * len(arm_k), sum(2 * (T + (playout_turns_per_seat(cfg4, 32, 10, k) if k else 0))
+                                                for k in arm_k.values())), devblock_attrib.main)
+            if list(res) != list(arm_k) or not all(v["min_ms"] > 0 for v in res.values()):
+                raise AssertionError(f"devblock_attrib: {res}")
+            line["devblock_attrib"]["result"] = res
+            # prior_decoupled_eval: 4 matchups of 2 two-seat matches, both seats searching.
+            res = run("prior_decoupled_eval", "32 games a seat order at budget 16 (not 512 at 50, 100)",
+                      ["--games", "32", "--budgets", "16"], match(8, 8 * (T + 2 * playout_turns_per_seat(cfg2, 16))),
+                      prior_decoupled_eval.main)
+            if list(res) != ["A@16", "B@16", "C@16", "D@16"] or not all(in_unit(v["win_rate_A"]) for v in res.values()):
+                raise AssertionError(f"prior_decoupled_eval: {res}")
+            line["prior_decoupled_eval"]["result"] = res
+            # puct_batch_ab: 2 keys at K 8 and 16; three search seats at the arm's K; every arm dealt alike.
+            dealt, real_deal = [], device_match.deal
+            device_match.deal = lambda *a, **k: dealt.append(real_deal(*a, **k)) or dealt[-1]
+            try:
+                res = run("puct_batch_ab", "32 games, 2 keys, K 8 and 16 at mc_max 32 (not 256, 4, 8/16/32 at 200)",
+                          ["--games", "32", "--keys", "2", "--ks", "8,16", "--mc-max", "32",
+                           "--out", os.path.join(tmp, "pb.json")],
+                          match(4, sum(2 * (T + 3 * playout_turns_per_seat(cfg4, 32, 10, k)) for k in (8, 16))),
+                          puct_batch_ab.main)
+            finally:
+                device_match.deal = real_deal
+            same = [torch.equal(dealt[e].hands, dealt[2 + e].hands) and torch.equal(dealt[e].board, dealt[2 + e].board)
+                    for e in range(2)]
+            if len(dealt) != 4 or not all(same) or torch.equal(dealt[0].hands, dealt[1].hands):
+                raise AssertionError(f"puct_batch_ab: {len(dealt)} deals, arms dealt alike per key: {same}")
+            if not all(in_unit(a["win_rate"]) and in_scores(a["mean_score"]) for a in res["arms"].values()):
+                raise AssertionError(f"puct_batch_ab: {res}")
+            line["puct_batch_ab"].update(result=res, arms_dealt_alike=same)
+            # devroot_equivalence: 2 host games a searcher; a wrapper reset is K2, a turn K1, and each
+            # decision ceil(n_mc / K) rounds of n playout turns, device root and host root alike.
+            for agent, cls in (("puct", PUCTAgent), ("mcs", MCSAgent)):
+                a = cls(mc_max=16, device="cpu")
+                searches = 2 * sum(host_search_turns(a, n) for n in range(1, cfg2.hand_size + 1))
+                res = run(f"devroot_equivalence_{agent}", "2 games at mc_max 16 (not 200 at 200)",
+                          ["--agent", agent, "--games", "2", "--mc-max", "16"], match(2, 2 * (T + searches)),
+                          devroot_equivalence.main)
+                if not (in_unit(res["device_root_win_rate"]) and in_scores(res["mean_score_device"],
+                                                                           res["mean_score_host"])):
+                    raise AssertionError(f"devroot_equivalence {agent}: {res}")
+                line[f"devroot_equivalence_{agent}"]["result"] = res
+            # acer_onpolicy_ab: an untimed and 2 timed cycles an arm at G=4096 (K2 once and K1 ten times a
+            # cycle), one arena match an arm against random seats and 2 head-to-head.
+            res = run("acer_onpolicy_ab", "2 cycles an arm (not 200), 1,024 eval games (not 4,096)",
+                      ["--steps", "2", "--eval-games", "1024", "--out", os.path.join(tmp, "acer.json")],
+                      match(2 * 3 + 2 + 2, 10 * (2 * 3 + 2 + 2)), acer_onpolicy_ab.main)
+            for arm in ("all_fresh", "subsampled"):
+                r = res[arm]
+                if not (in_unit(r["win_vs_3_random"]) and in_scores(r["final_mean_score"])
+                        and r["peak_device_memory_bytes"] > 0):
+                    raise AssertionError(f"acer_onpolicy_ab {arm}: {r}")
+            if not in_unit(res["all_fresh_win_vs_subsampled"]["rate"]):
+                raise AssertionError(f"acer_onpolicy_ab: {res}")
+            line["acer_onpolicy_ab"]["result"] = res
+    finally:
+        dtm.DeviceBlockSession.dispatch = real_dispatch
+        step_kernel._ROW_MAJOR, game_kernel._DEAL = real_k1, real_k2
+    line["phase_launches"] = {k: v for k, v in path.items() if v}
+    # K1 and K2 against their twins at every configuration and game count the scripts launched them at
+    # (games dealt, playout lanes); these launches are not the path's.
+    errs = {"deal_games": 0.0, "resolve_turn": 0.0}
+    for cfg, sizes in sorted(shapes.items(), key=lambda kv: kv[0].num_players):
+        for name, err in k1_k2_against_twins(cfg, sorted(sizes), 113, dev).items():
+            errs[name] = max(errs[name], err)
+    line["twin_shapes"] = {str(cfg.num_players): sorted(sizes) for cfg, sizes in shapes.items()}
+    log(f"[13] K1 and K2 bit-exact vs twins at every shape the scripts launched them at "
+        f"{line['twin_shapes']} (players: games)")
+    return line, path, errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
@@ -1969,6 +2188,20 @@ def main():
         if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert"):
             row["scripts_path_launches"] = scripts_launches[row["name"]]
     print(json.dumps({"scripts": scripts_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 13
+    t0 = time.perf_counter()
+    evals_line, evals_launches, evals_errs = evals_phase(dev, card)
+    evals_line["phase_s"] = time.perf_counter() - t0
+    log(f"[13] the evaluation scripts took {evals_line['phase_s']:.1f} s")
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["evals_path_launches"] = evals_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], evals_errs[row["name"]])
+    missing = [k for k in ("resolve_turn", "deal_games") if not evals_launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the evaluation scripts' path: {missing}")
+    print(json.dumps({"evals": evals_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,3 +1,4 @@
-"""Ports of the JAX package's kernel experiments (``experiments/``): the act-rollout
-ablation (K6) and the act kernel's building-block probes (K7).  Run each with
+"""Ports of the JAX package's experiment scripts (``experiments/``): benchmarks, the
+act-rollout ablation (K6) and the op probes (K7), training scripts, and the strength
+evaluations, A/B tests and device-block profilers.  Run each with
 ``python -m rl6nimmt_torch.experiments.<name>``; nothing runs at import."""

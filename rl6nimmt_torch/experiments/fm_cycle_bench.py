@@ -81,7 +81,7 @@ def run_chain(cycle, state, gen, chain: int, step0: int, eps: float = 0.1):
 def main(argv=None):
     from ..engine import EnvConfig
     from ..ops import _build
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, synchronize
     from .kernel_times import smi_line
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -93,7 +93,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     cfg = EnvConfig(num_players=4)
     arms, states, gens, launches, steps = {}, {}, {}, {}, {}
@@ -110,7 +109,7 @@ def main(argv=None):
     times = {arm: [] for arm in arms}
     for _ in range(args.reps):
         for arm, cycle in arms.items():              # in turns: the host's speed drifts
-            sync()
+            synchronize(dev)
             t0 = time.perf_counter()
             states[arm], losses = run_chain(cycle, states[arm], gens[arm], args.chain, steps[arm])
             times[arm].append(time.perf_counter() - t0)

@@ -26,7 +26,7 @@ from ..buffers.sequence import seq_init
 from ..engine import EnvConfig
 from ..nets import MLPSpec, mlp_init
 from ..runtime import vector
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 from .kernel_times import smi_line
 
 HIDDEN = (100, 100)
@@ -74,15 +74,14 @@ class AcerArm:
 
 def seconds_per_step(arm, cycles: int, warmup: int = 2) -> float:
     """Median host seconds of one ``arm.step()``, each ending in a synchronize."""
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     for _ in range(warmup):
         arm.step()
-    sync()
+    synchronize(arm.generator.device)
     times = []
     for _ in range(cycles):
         t0 = time.perf_counter()
         arm.step()
-        sync()
+        synchronize(arm.generator.device)
         times.append(time.perf_counter() - t0)
     return sorted(times)[len(times) // 2]
 

@@ -47,6 +47,7 @@ from ..ops import _build
 from ..ops.act_rollout_kernel import S_PAD, SCAL_ROWS
 from ..parallel import (make_dp_acer_step, make_dp_dqn_step, make_dp_reinforce_step, make_mesh, make_mesh_2level,
                         replicated, stack_for_mesh)
+from ..utils.device import synchronize
 from ..utils.ops import ALLREDUCES
 from .vector import (acer_sequence_example, dqn_replay_example, make_acer_selfplay_step, make_dqn_selfplay_step,
                      make_reinforce_train_step)
@@ -180,11 +181,6 @@ def _pmean_agrees(mesh, device) -> dict:
     return {"max_err": err, "identity": identity}
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def allreduce_ms(mesh, device, floats: int, reps: int = 20) -> float:
     """Median ms of one pmean_fused of a ``floats``-long gradient and a loss
     (the all-reduce an update adds), from the host's call to the result on the device."""
@@ -193,10 +189,10 @@ def allreduce_ms(mesh, device, floats: int, reps: int = 20) -> float:
     tree = ({"w": torch.ones(floats - 1, device=device)}, torch.ones((), device=device))
     times = []
     for i in range(reps + 3):
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         pmean_fused(tree, mesh.reduce_groups())
-        _sync(device)
+        synchronize(device)
         times.append(time.perf_counter() - t0)
     return 1e3 * sorted(times[3:])[reps // 2]
 
@@ -270,7 +266,7 @@ def run_checks(rank: int, world: int, inputs: dict, device="cpu"):
             for _ in range(2):
                 before, t0 = ALLREDUCES["calls"], time.perf_counter()
                 runs.append(cycle(params, target, opt, stack_for_mesh(buf, mesh), mesh.generator(10), 0.3))
-                _sync(device)
+                synchronize(device)
                 out["allreduces"][f"dqn_{mname}"] = ALLREDUCES["calls"] - before
                 out.setdefault("cycle_s", {})[f"dqn_{mname}"] = time.perf_counter() - t0
             out["replicated"][f"dqn_cycle_{mname}"] = replicated(mesh).check(runs[0][0])

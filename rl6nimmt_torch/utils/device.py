@@ -21,3 +21,11 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work when ``device`` is a CUDA device (a host
+    clock read after it times the work, not its enqueue); nothing on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

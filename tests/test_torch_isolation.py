@@ -63,7 +63,12 @@ def test_module_list_covers_the_ported_slice():
               # the feature-major and block-aligned replay layouts and the scripts' twins
               "experiments.fm_cycle_bench", "experiments.micro_insert", "experiments.fm_strength_ab",
               "experiments.train_puct_prior", "experiments.long_train_eval", "experiments.strength_vs_budget",
-              "experiments.play_human"):
+              "experiments.play_human",
+              # the evaluation, A/B and profiling scripts' twins
+              "experiments.device_learn_strength_ab", "experiments.device_learn_speedup",
+              "experiments.profile_devblock", "experiments.budget_saturation", "experiments.devblock_attrib",
+              "experiments.prior_decoupled_eval", "experiments.puct_batch_ab", "experiments.devroot_equivalence",
+              "experiments.acer_onpolicy_ab", "experiments.arena_eval"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -115,6 +120,9 @@ def test_cuda_entry_points_raise_without_a_card():
     from rl6nimmt_torch.buffers import per_init_aligned, per_init_aligned_fm, per_init_fm
     from rl6nimmt_torch.experiments import (fm_cycle_bench, fm_strength_ab, long_train_eval, micro_insert,
                                             play_human, strength_vs_budget, train_puct_prior)
+    from rl6nimmt_torch.experiments import (acer_onpolicy_ab, budget_saturation, devblock_attrib,
+                                            device_learn_speedup, device_learn_strength_ab, devroot_equivalence,
+                                            prior_decoupled_eval, profile_devblock, puct_batch_ab)
 
     cfg = EnvConfig(4)
     cpu_hamster = DrunkHamster(seed=0, device="cpu")
@@ -222,6 +230,16 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: strength_vs_budget.main([]),
         lambda: play_human.main([]),
         lambda: play_human.main(["--device-game"]),
+        # the evaluation, A/B and profiling scripts' twins
+        lambda: device_learn_strength_ab.main([]),
+        lambda: device_learn_speedup.main([]),
+        lambda: profile_devblock.main([]),
+        lambda: budget_saturation.main([]),
+        lambda: devblock_attrib.main([]),
+        lambda: prior_decoupled_eval.main([]),
+        lambda: puct_batch_ab.main([]),
+        lambda: devroot_equivalence.main([]),
+        lambda: acer_onpolicy_ab.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
