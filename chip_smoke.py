@@ -152,15 +152,31 @@ process per source), then:
    16 at mc_max 32; every arm dealt the same games), ``devroot_equivalence``
    (2 games at mc_max 16, ``puct`` and ``mcs``) and ``acer_onpolicy_ab`` (2
    cycles an arm at G=4096, 1,024 eval games; peak device memory); then K1
-   and K2 against their twins at every shape the scripts launched them at.
+   and K2 against their twins at every shape the scripts launched them at;
+14. runs the ``main()`` of each profiler's, micro-benchmark's and debug script's
+   twin at the published widths and a cut depth (each cut in the log), with
+   its checks and its exact K1/K2/K4/K4 fm launches: ``act_rollout_probe``
+   (K4 at G=4096, its structural checks and its engine replay at action
+   agreement >= 0.999, chains of 16), ``roofline_cycle`` (the fm cycle and the
+   raw fm kernel, chains of 2), ``bench_trainable --dtype bfloat16`` (its
+   three learners at JAX's defaults), ``profile_trainable --dtype bfloat16``,
+   ``micro_cycle`` to ``micro_cycle5`` (chains of 1; the over-capacity rows of
+   ``micro_cycle`` and ``micro_cycle2`` must raise), ``micro_per``, ``micro_acer``,
+   ``profile_ab`` (2 seeds, 2 cycles an arm, 1,024 eval games), the three
+   ``debug_*`` host games and ``debug_gradflow``; then the bfloat16 forwards of
+   the D3QN, REINFORCE and ACER nets and a REINFORCE gradient on the card
+   against the CPU's, and K1, K2, K4 and K4 fm against their twins at every
+   shape the scripts launched them at.
 
-Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp``, ``scripts`` and ``evals`` JSON lines,
+Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp``, ``scripts``, ``evals`` and
+``profilers`` JSON lines,
 one JSON line of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
 K2's rows their launches on the search, the learners', the tournament's and the
 arena's path, K1's row-major, K2's, K4's in both layouts and K5's on the DP
-path, K1's, K2's, K4's and K5's on the scripts' path, and K1's and K2's on the
-evaluation scripts' path), the
+path, K1's, K2's, K4's and K5's on the scripts' path, K1's and K2's on the
+evaluation scripts' path, and K1's, K2's and K4's in both layouts on the
+profilers' path), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -1635,6 +1651,368 @@ def evals_phase(dev, card):
     return line, path, errs
 
 
+# Phase 14, the profilers', micro-benchmarks' and debug scripts' twins: the bf16 forwards on the card held against
+# the CPU's (the largest difference over the output's largest magnitude; a result rounded to bfloat16 would be off by
+# up to 2^-9 of it, float32 summation order by ~1e-6) and the REINFORCE gradient through them (two bfloat16 ulps:
+# each operand's gradient is rounded to bfloat16, as JAX's, and a summation-order difference may round it the
+# other way; the head bias's gradient is round-off alone, hence the absolute part).
+BF16_FWD_RTOL = 1e-4
+BF16_GRAD_RTOL, BF16_GRAD_ATOL = 2.0 ** -7, 1e-5
+PROFILE_CHECK_SEED = 115
+
+
+def k4_against_twin(cfg, games, hidden, seed, dev, feature_major):
+    """K4 (or its feature-major entry) against its plain twin at one shape, on
+    the flagship net's per-turn effective weights: deals exact, action
+    agreement >= 0.999, the agreeing games' outputs bit for bit.  Raises on a
+    difference; returns the agreement and the largest difference in the agreeing games."""
+    from rl6nimmt_torch.agents.dqn import DQNConfig, q_network_spec
+    from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
+    from rl6nimmt_torch.ops.act_rollout_check import turn_effective_weights
+    from rl6nimmt_torch.ops.act_rollout_kernel import act_rollout_fm_plain, act_rollout_plain, make_act_rollout_kernel
+
+    spec = q_network_spec(DQNConfig(**{**FLAGSHIP, "hidden_sizes": (hidden,)}), cfg.state_length, cfg.num_actions)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eff = turn_effective_weights(spec, mlp_init(gen, spec, dev), draw_mlp_noise(spec, gen, batch=(cfg.max_turns,)))
+    args = tuple(x.contiguous() for x in (eff["trunk"][0]["w"], eff["trunk"][0]["b"],
+                                          eff["heads"][1]["w"], eff["heads"][1]["b"]))
+    got = make_act_rollout_kernel(cfg, games, hidden, feature_major=feature_major)(seed, *args)
+    want = (act_rollout_fm_plain if feature_major else act_rollout_plain)(cfg, seed, games, *args)
+    (ok, ak, rk), (op, ap, rp) = got, want
+    P = cfg.num_players
+    if feature_major:        # obs [S, (T+1)*P, G], actions/rewards [T*P, G]: the games on the last axis
+        same = (ak == ap).all(dim=0)
+        deals = torch.equal(ok[:, :P], op[:, :P])
+        pairs = [(ok[..., same], op[..., same]), (rk[:, same], rp[:, same])]
+    else:                    # obs [T+1, G, P, S], actions/rewards [T, G, P]
+        same = (ak == ap).all(dim=(0, 2))
+        deals = torch.equal(ok[0], op[0])
+        pairs = [(ok[:, same], op[:, same]), (rk[:, same], rp[:, same])]
+    agree = (ak == ap).float().mean().item()
+    name = "K4 feature-major" if feature_major else "K4"
+    if not deals or agree < 0.999 or not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name} vs twin at G={games}, hidden {hidden}: deals {deals}, agreement {agree}")
+    return agree, max_abs_err(pairs)
+
+
+def bf16_card_against_cpu(dev):
+    """``compute_dtype="bfloat16"`` on the card against the CPU (both: the
+    operands rounded to bfloat16, a float32 product) on the same params and
+    inputs: the flagship D3QN's ``q_values`` (noisy, one noise draw), the
+    REINFORCE net's ``action_in_input_logits`` and the ACER net's
+    ``action_in_input_heads`` at G=64 four-seat observations and hands, and
+    one REINFORCE loss's gradient.  Raises beyond the tolerances above.  Also
+    measures, without a check, the tensor cores' product of the same rounded
+    operands (``torch.mm(..., out_dtype=float32)``), which ``_mm`` does not
+    use, alone and in the three forwards.  Returns the errors."""
+    import dataclasses
+
+    from rl6nimmt_torch.agents.dqn import DQNConfig, grad_leaves, grads_of, q_network_spec, q_values, tree_leaves
+    from rl6nimmt_torch.agents.reinforce import action_in_input_heads, action_in_input_logits
+    from rl6nimmt_torch.engine import EnvConfig, deal, observe
+    from rl6nimmt_torch.nets import MLPSpec, draw_mlp_noise, mlp_init
+
+    cpu = torch.device("cpu")
+    cfg = EnvConfig(4)
+    state = deal(cfg, PROFILE_CHECK_SEED, 64, device=cpu)
+    obs, _ = observe(cfg, state)
+    hands = state.hands_sorted.to(torch.int64)
+    dqn = DQNConfig(**FLAGSHIP)
+    qspec = dataclasses.replace(q_network_spec(dqn, cfg.state_length, cfg.num_actions), compute_dtype="bfloat16")
+    aspec = MLPSpec(cfg.state_length + 1, (100, 100), (1,), compute_dtype="bfloat16")
+    cspec = dataclasses.replace(aspec, head_sizes=(1, 1))
+    gen = torch.Generator().manual_seed(PROFILE_CHECK_SEED)
+    nets = {"dqn": (qspec, mlp_init(gen, qspec, cpu)), "reinforce": (aspec, mlp_init(gen, aspec, cpu)),
+            "acer": (cspec, mlp_init(gen, cspec, cpu))}
+    noise = draw_mlp_noise(qspec, gen)
+    to = lambda tree, d: ({p: [{k: v.to(d) for k, v in layer.items()} for layer in tree[p]] for p in tree}
+                          if isinstance(tree, dict) else [{k: v.to(d) for k, v in z.items()} for z in tree])
+    forwards = {"dqn": lambda p, d: (q_values(dqn, qspec, p, obs.to(d), to(noise, d)),),
+                "reinforce": lambda p, d: (action_in_input_logits(aspec, p, obs.to(d), hands.to(d)),),
+                "acer": lambda p, d: action_in_input_heads(cspec, p, obs.to(d), hands.to(d))}
+    errs = {}
+    for name, (spec, params) in nets.items():
+        want = forwards[name](params, cpu)
+        got = forwards[name](to(params, dev), dev)
+        err = max(float((g.cpu() - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want))
+        if not err <= BF16_FWD_RTOL:
+            raise AssertionError(f"bf16 {name} forward: card vs CPU {err:.3g} of the output's scale")
+        errs[f"{name}_forward"] = err
+    # One REINFORCE-style loss (log-softmax of the legal logits at the first hand slot) and its gradient.
+    grads = []
+    for d in (cpu, dev):
+        leaves, live = grad_leaves(to(nets["reinforce"][1], d))
+        logits = action_in_input_logits(aspec, live, obs.to(d), hands.to(d))
+        loss = -torch.log_softmax(logits, dim=-1)[..., 0].mean()
+        grads.append([g.cpu() for g in tree_leaves(grads_of(loss, leaves, to(nets["reinforce"][1], d)))])
+    scale = max(float(g.abs().max()) for g in grads[0])
+    for g, w in zip(grads[1], grads[0]):
+        if not bool(((g - w).abs() <= BF16_GRAD_RTOL * w.abs() + BF16_GRAD_ATOL * scale).all()):
+            raise AssertionError(f"bf16 REINFORCE gradient: card vs CPU {float((g - w).abs().max()):.3g}")
+    errs["reinforce_gradient"] = max(float((g - w).abs().max()) for g, w in zip(grads[1], grads[0])) / scale
+    # Measured, not checked: the tensor cores' product of the same rounded operands with a float32 result
+    # (``torch.mm(..., out_dtype=float32)``), the route ``_mm`` does not take. First alone at the nets' (M, K, N)
+    # on random operands, then in the three nets' forwards (``_mm`` swapped for it), each of the output's scale.
+    tensor_core = {}
+    if dev.type == "cuda":
+        from rl6nimmt_torch.agents import reinforce
+        from rl6nimmt_torch.nets import mlp
+
+        for m, k, n in ((256, 47, 64), (256, 64, 104), (256, 64, 1), (2560, 100, 100), (2560, 100, 1)):
+            a = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+            b = torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
+            want = a.float() @ b.float()
+            got = torch.mm(a, b, out_dtype=torch.float32)
+            tensor_core[f"{m}x{k}x{n}"] = float((got - want).abs().max()) / float(want.abs().max())
+
+        real_mm = mlp._mm
+
+        def tensor_core_mm(x, w, dtype=None):
+            if dtype != "bfloat16" or w.dim() != 2 or x.device.type != "cuda":
+                return real_mm(x, w, dtype)
+            out = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), w.to(torch.bfloat16),
+                           out_dtype=torch.float32)
+            return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+        mlp._mm = reinforce._mm = tensor_core_mm
+        try:
+            with torch.no_grad():
+                for name, (spec, params) in nets.items():
+                    want = forwards[name](params, cpu)
+                    got = forwards[name](to(params, dev), dev)
+                    tensor_core[f"{name}_forward"] = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                                                         for g, w in zip(got, want))
+        finally:
+            mlp._mm = reinforce._mm = real_mm
+    errs["tensor_core_product_not_used"] = tensor_core
+    return errs
+
+
+def profilers_phase(dev, card):
+    """Phase 14: the ``main()`` of each profiler's, micro-benchmark's and debug
+    script's twin on the card at the published widths and a cut depth (each cut
+    stated in the log), with its checks; every counter is set to 0 just before
+    each script and read just after, and held to the script's exact K1/K2/K4/K4
+    fm launches.  Then the bf16 forwards and gradient against the CPU's, and K1,
+    K2, K4 and K4 fm against their twins at every shape the scripts launched
+    them at.  Returns the ``profilers`` line, the launches summed over the
+    scripts and the largest differences of each kernel from its twin."""
+    import contextlib
+    import io
+    import logging
+    import tempfile
+
+    from rl6nimmt_torch.agents import PUCTAgent
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments import (act_rollout_probe, bench_trainable, debug_acer, debug_dqn,
+                                            debug_gradflow, debug_mcts, micro_acer, micro_cycle, micro_cycle2,
+                                            micro_cycle3, micro_cycle4, micro_cycle5, micro_per, profile_ab,
+                                            profile_trainable, roofline_cycle)
+    from rl6nimmt_torch.ops import _build, act_rollout_kernel, game_kernel, step_kernel
+
+    line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
+    cfg4, cfg2 = EnvConfig(4), EnvConfig(2)
+    T = cfg4.max_turns
+    units = lambda n: {"deal_games": n, "resolve_turn": T * n}   # n rollouts, cycles, steps or matches
+    finite = lambda *xs: all(isinstance(x, float) and math.isfinite(x) and x > 0 for x in xs)
+
+    # The shape of every K1, K2, K4 and K4 fm launch the scripts make (the launchers' trailing
+    # arguments), for the twin checks.
+    shapes = {"resolve_turn": set(), "deal_games": set(), "act_rollout": set(), "act_rollout_fm": set()}
+    real = {"resolve_turn": (step_kernel, "_ROW_MAJOR"), "deal_games": (game_kernel, "_DEAL"),
+            "act_rollout": (act_rollout_kernel, "_ROLLOUT"), "act_rollout_fm": (act_rollout_kernel, "_ROLLOUT_FM")}
+    originals = {k: getattr(m, a) for k, (m, a) in real.items()}
+    shape_of = {
+        "resolve_turn": lambda a: (EnvConfig(a[-3], a[-2], threshold=a[-1]), a[-4], None),          # G, P, R, T
+        "deal_games": lambda a: (EnvConfig(a[-5], a[-4], a[-1], a[-3], hand_size=a[-2]), a[-6], None),  # G,P,R,T,H,N
+        "act_rollout": lambda a: (EnvConfig(a[9], a[10], a[13], a[11], bool(a[16]), a[12]), a[8], a[14]),
+    }
+    shape_of["act_rollout_fm"] = shape_of["act_rollout"]
+
+    def recording(name):
+        def launch(device_index, *args):
+            shapes[name].add(shape_of[name](args))
+            return originals[name](device_index, *args)
+        return launch
+
+    def run(name, cut, argv, want, main):
+        """``want``: the launches, or a function of the script's result giving them."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        root = logging.getLogger()
+        handlers, level = root.handlers[:], root.level
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                result = main(argv)
+        finally:
+            for h in root.handlers[:]:
+                if h not in handlers:
+                    root.removeHandler(h)
+            root.setLevel(level)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in got.items():
+            path[k] += v
+        want = want(result) if callable(want) else want
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        line[name] = {"argv": argv, "cut": cut, "seconds": secs, "launches": got}
+        log(f"[14] {name} {' '.join(argv)} ({cut}): {secs:.2f} s, launches {got}")
+        for text in out.getvalue().strip().splitlines()[-8:]:
+            log(f"[14]   {text}")
+        return result
+
+    for k, (m, a) in real.items():
+        setattr(m, a, recording(k))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # act_rollout_probe: K4 once for the checks and its replay (K2 once, K1 ten times), then
+            # (1 + iters) chains of K4 generations.
+            chain, iters = 16, 2
+            res = run("act_rollout_probe", f"chains of {chain} generations, {iters} timed (not 256, 5)",
+                      ["--chain", str(chain), "--iters", str(iters)],
+                      {**units(1), "act_rollout": 1 + (1 + iters) * chain}, act_rollout_probe.main)
+            if res["structural_fails"] or res["action_agreement"] < 0.999 or res["score_agreement"] < 0.999:
+                raise AssertionError(f"act_rollout_probe: {res}")
+            line["act_rollout_probe"]["result"] = res
+            # roofline_cycle: the fm cycle at learn_iters 8 and 1, then the raw fm kernel, each one
+            # untimed and reps timed chains; K4 fm once a cycle or generation.
+            chain, reps = 2, 1
+            res = run("roofline_cycle", f"chains of {chain} cycles, {reps} timed (not 256, 3)",
+                      ["--chain", str(chain), "--reps", str(reps), "--out", os.path.join(tmp, "roof.json")],
+                      {"act_rollout_fm": 3 * (1 + reps) * chain}, roofline_cycle.main)
+            phases = res["phases"].values()
+            if not (finite(*(p["floor_ms"] for p in phases), res["measured_ms_per_cycle"]["full_8_iters"])
+                    and all(math.isfinite(p["measured_ms"]) for p in phases)):
+                raise AssertionError(f"roofline_cycle: {res}")
+            line["roofline_cycle"]["result"] = res
+            # bench_trainable --dtype bfloat16: its three learners at JAX's defaults, 2 untimed and 8
+            # timed cycles each (K2 once and K1 ten times a step or cycle).
+            res = run("bench_trainable_bf16", "the JAX defaults, bf16", ["--dtype", "bfloat16"], units(3 * 10),
+                      bench_trainable.main)
+            if set(res) != {"reinforce", "dqn", "acer"} or not finite(*(float(v["value"]) for v in res.values())):
+                raise AssertionError(f"bench_trainable: {res}")
+            line["bench_trainable_bf16"]["result"] = res
+            # profile_trainable --dtype bfloat16: REINFORCE 3 rollouts and 3 steps; DQN 5 warm-up
+            # cycles, 3 learn-free and 3 full ones (the bare updates and samples launch neither).
+            res = run("profile_trainable_bf16", "chains of 1, 1 timed (not 16, 8), bf16",
+                      ["--chain", "1", "--iters", "1", "--dtype", "bfloat16"], units(6 + 11), profile_trainable.main)
+            if not finite(res["reinforce"]["full_cycle_ms"], res["dqn"]["1_update_ms"], res["dqn"]["1_per_sample_ms"]):
+                raise AssertionError(f"profile_trainable: {res}")
+            line["profile_trainable_bf16"]["result"] = res
+            short = ["--chain", "1", "--iters", "1"]
+            # micro_cycle and micro_cycle2: each row 2 untimed and 1 timed cycle; a row whose cycle inserts more
+            # transitions than its buffer holds (at G=4096 micro_cycle's capacity-50,000 row, and micro_cycle2's
+            # two cap=16384, G=1024 rows) raises at its first insert, after its first rollout.
+            over = lambda games, cap: games * cfg4.num_players * T > cap
+            rows = {"micro_cycle": [(f"per={per} cap={cap} learn_iters={li}", micro_cycle.G, cap)
+                                    for per, cap, li in micro_cycle.ROWS],
+                    "micro_cycle2": [(tag, games or micro_cycle2.G, cap)
+                                     for tag, games, cap, _, _ in micro_cycle2.ROWS]}
+            for name, main in (("micro_cycle", micro_cycle.main), ("micro_cycle2", micro_cycle2.main)):
+                raising = sorted(tag for tag, games, cap in rows[name] if over(games, cap))
+                res = run(name, "chains of 1 cycle, 1 timed (not 16, 6)", short,
+                          units(3 * (len(rows[name]) - len(raising)) + len(raising)), main)
+                raised = sorted(k for k, v in res.items() if isinstance(v, str))
+                if raised != raising or not finite(*(v for k, v in res.items() if k not in raised)):
+                    raise AssertionError(f"{name}: {res}")
+                line[name]["result"] = res
+            # micro_cycle3: (a), (b), (d) 3 rollouts or cycles each; (c) the insert alone launches nothing.
+            res = run("micro_cycle3", "chains of 1, 1 timed (not 16, 6)", short, units(9), micro_cycle3.main)
+            if not finite(*res.values()):
+                raise AssertionError(f"micro_cycle3: {res}")
+            line["micro_cycle3"]["result"] = res
+            # micro_cycle4 and micro_cycle5: one untimed and one timed chain a row; 4 rollouts and 2 cycles,
+            # 2 rollouts and 4 cycles.
+            for name, main in (("micro_cycle4", micro_cycle4.main), ("micro_cycle5", micro_cycle5.main)):
+                res = run(name, "chains of 1, 1 timed (not 16 or 32, 6)", short, units(6 * 2), main)
+                if not finite(*res.values()):
+                    raise AssertionError(f"{name}: {res}")
+                line[name]["result"] = res
+            # micro_per: seven probes of per_sample's parts; no kernel of the port.
+            res = run("micro_per", "chains of 16, 2 timed (not 64, 8)", ["--chain", "16", "--iters", "2"], {},
+                      micro_per.main)
+            if not finite(*res.values()):
+                raise AssertionError(f"micro_per: {res}")
+            line["micro_per"]["result"] = res
+            # micro_acer: 3 rollouts and the fixed batch's; the train steps launch neither.
+            res = run("micro_acer", "chains of 1, 1 timed (not 16, 6)", short, units(4), micro_acer.main)
+            if not finite(*res.values()):
+                raise AssertionError(f"micro_acer: {res}")
+            line["micro_acer"]["result"] = res
+            # profile_ab: REINFORCE 2 seeds x 2 arms x 2 steps; ACER 6 timing cycles an arm, then per seed
+            # 2 all-fresh and the equal-wall count of subsampled cycles; per family and seed 2 matches
+            # against random seats and a head-to-head of 2.
+            seeds = 2
+
+            def ab_units(r):
+                sub = r["acer"]["equal_wall_cycle_counts"]["subsampled"]
+                return units(seeds * 2 * 2 + 2 * 6 + seeds * (2 + sub) + 2 * seeds * 4)
+
+            res = run("profile_ab", f"{seeds} seeds, 2 cycles an arm, 1,024 eval games (not 8, 400 and 120, 4,096)",
+                      ["--seeds", str(seeds), "--cycles", "2", "--acer-cycles", "2", "--curve-every", "1",
+                       "--curve-every-acer", "1", "--eval-games", "1024", "--out", os.path.join(tmp, "ab.json")],
+                      ab_units, profile_ab.main)
+            rates = [x for fam in res.values() for v in fam["win_vs_3_random"].values() for x in v]
+            rates += res["reinforce"]["head_to_head_fused_rate"] + res["acer"]["head_to_head_subsampled_rate"]
+            if not all(0.0 <= x <= 1.0 for x in rates):
+                raise AssertionError(f"profile_ab: {res}")
+            line["profile_ab"]["result"] = {fam: {k: v[k] for k in v if "curves" not in k} for fam, v in res.items()}
+            # The debug scripts: host GameSession games, one K2 a game and one K1 a turn, PUCT's search
+            # turns besides (debug_mcts); debug_gradflow 3 cycles of 256 games.
+            for name, main, games in (("debug_dqn", debug_dqn.main, 2), ("debug_acer", debug_acer.main, 3)):
+                res = run(name, "full", [], units(games), main)
+                if len(res) != games or not all((r <= 0).all() for r in res):
+                    raise AssertionError(f"{name}: {res}")
+                line[name]["results"] = [r.tolist() for r in res]
+            puct = PUCTAgent(mc_max=32, mc_per_card=4, batch_playouts=8, device="cpu")
+            searches = sum(host_search_turns(puct, n) for n in range(1, cfg2.hand_size + 1))
+            res = run("debug_mcts", "full", [], {"deal_games": 1, "resolve_turn": T + searches}, debug_mcts.main)
+            if len(res) != 1 or not (res[0] <= 0).all():
+                raise AssertionError(f"debug_mcts: {res}")
+            line["debug_mcts"]["results"] = [r.tolist() for r in res]
+            res = run("debug_gradflow", "full", ["--out", os.path.join(tmp, "grad_flow.png")], units(3),
+                      debug_gradflow.main)
+            stats, figure = res
+            if not all(math.isfinite(s["max_abs"]) for s in stats.values()) or not stats:
+                raise AssertionError(f"debug_gradflow: {stats}")
+            line["debug_gradflow"].update(grad_stats=stats, figure=figure)
+    finally:
+        for k, (m, a) in real.items():
+            setattr(m, a, originals[k])
+    line["phase_launches"] = {k: v for k, v in path.items() if v}
+
+    line["bf16_card_vs_cpu"] = bf16_card_against_cpu(dev)
+    log(f"[14] bf16 card vs CPU (of the output's scale; limits {BF16_FWD_RTOL}, gradient {BF16_GRAD_RTOL} "
+        f"relative + {BF16_GRAD_ATOL} of the largest): {line['bf16_card_vs_cpu']}")
+    # K1, K2, K4 and K4 fm against their twins at every shape the scripts launched them at; these
+    # launches are not the path's.
+    errs = {"deal_games": 0.0, "resolve_turn": 0.0, "act_rollout": 0.0, "act_rollout_fm": 0.0}
+    k12 = {}
+    for name in ("resolve_turn", "deal_games"):
+        for cfg, games, _ in shapes[name]:
+            k12.setdefault(cfg, set()).add(games)
+    for cfg, sizes in sorted(k12.items(), key=lambda kv: kv[0].num_players):
+        for name, err in k1_k2_against_twins(cfg, sorted(sizes), PROFILE_CHECK_SEED, dev).items():
+            errs[name] = max(errs[name], err)
+    agreement = {}
+    for name in ("act_rollout", "act_rollout_fm"):
+        for cfg, games, hidden in sorted(shapes[name], key=lambda s: (s[1], s[2])):
+            agree, err = k4_against_twin(cfg, games, hidden, PROFILE_CHECK_SEED, dev, name == "act_rollout_fm")
+            errs[name] = max(errs[name], err)
+            agreement[f"{name} G={games} hidden={hidden}"] = agree
+    line["twin_shapes"] = {"k1_k2": {str(cfg.num_players): sorted(s) for cfg, s in k12.items()},
+                           "k4": sorted(f"{n} G={g} hidden={h}" for n in ("act_rollout", "act_rollout_fm")
+                                        for _, g, h in shapes[n])}
+    line["k4_twin_agreement"] = agreement
+    log(f"[14] K1/K2 bit-exact vs twins at {line['twin_shapes']['k1_k2']} (players: games); K4 and K4 fm "
+        f"vs twins at {line['twin_shapes']['k4']}: deals exact, agreeing games bit for bit, agreement {agreement}")
+    return line, path, errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
@@ -2202,6 +2580,21 @@ def main():
     if missing:
         raise AssertionError(f"kernels never launched on the evaluation scripts' path: {missing}")
     print(json.dumps({"evals": evals_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 14
+    t0 = time.perf_counter()
+    profilers_line, profilers_launches, profilers_errs = profilers_phase(dev, card)
+    profilers_line["phase_s"] = time.perf_counter() - t0
+    log(f"[14] the profilers, micro-benchmarks and debug scripts took {profilers_line['phase_s']:.1f} s")
+    path14 = ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm")
+    for row in rows:
+        if row["name"] in path14:
+            row["profilers_path_launches"] = profilers_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], profilers_errs[row["name"]])
+    missing = [k for k in path14 if not profilers_launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the profilers' path: {missing}")
+    print(json.dumps({"profilers": profilers_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..nets import MLPSpec, linear_apply, mlp_apply, mlp_init, normalize_state
-from ..nets.mlp import _activation
+from ..nets.mlp import _activation, _mm
 from ..utils.ops import onehot_select
 from ..utils.returns import discounted_returns
 from .base import Agent, pad_cards
@@ -63,7 +63,9 @@ def action_in_input_heads(spec: MLPSpec, params, state, legal_cards):
 
         h1[h] = act(norm(state) @ W1[1:] + b1 + norm(a_h) * W1[0])
 
-    Layers past the first run on the ``[..., H, hidden]`` batch.
+    Layers past the first run on the ``[..., H, hidden]`` batch.  With
+    ``spec.compute_dtype="bfloat16"`` the shared product and every later layer
+    take bfloat16 inputs; the rank-1 action term stays float32, as in JAX.
     """
     act = _activation(spec.activation)
     state_norm = normalize_state(state)                                   # [..., S]
@@ -71,11 +73,12 @@ def action_in_input_heads(spec: MLPSpec, params, state, legal_cards):
     a_norm = -1.0 + 2.0 * legal_cards.to(torch.float32) / (CARDS - 1)      # [..., H]
     first = params["trunk"][0]
     w, b = first["w"], first["b"]                                          # [1+S, D], [D]
-    shared = state_norm @ w[1:] + b                                        # [..., D]
+    dtype = spec.compute_dtype
+    shared = _mm(state_norm, w[1:], dtype) + b                             # [..., D]
     h = act(shared[..., None, :] + a_norm[..., :, None] * w[0])            # [..., H, D]
     for layer in params["trunk"][1:]:
-        h = act(linear_apply(layer, h))
-    return tuple(linear_apply(head, h) for head in params["heads"])
+        h = act(linear_apply(layer, h, dtype))
+    return tuple(linear_apply(head, h, dtype) for head in params["heads"])
 
 
 def log_probs_and_entropy(logits):

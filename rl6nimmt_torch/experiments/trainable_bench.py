@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -36,11 +37,13 @@ ACER_ON_POLICY = 512
 
 
 class ReinforceArm:
-    """The REINFORCE learner at ``bench_trainable.py:57-65``; ``step()`` runs one train step."""
+    """The REINFORCE learner at ``bench_trainable.py:57-65``; ``step()`` runs one train step.
+    ``dtype`` is the spec's ``compute_dtype``."""
 
-    def __init__(self, cfg: EnvConfig, games: int, device, fused: bool = True, seed: int = 0):
+    def __init__(self, cfg: EnvConfig, games: int, device, fused: bool = True, seed: int = 0,
+                 dtype: str = "float32"):
         dev = resolve_device(device)
-        self.spec = MLPSpec(cfg.state_length + 1, hidden_sizes=HIDDEN, head_sizes=(1,))
+        self.spec = MLPSpec(cfg.state_length + 1, hidden_sizes=HIDDEN, head_sizes=(1,), compute_dtype=dtype)
         self.params = mlp_init(torch.Generator(device=dev).manual_seed(seed), self.spec, dev)
         self.adam = Adam(1e-3)
         self.opt_state = self.adam.init(self.params)
@@ -53,17 +56,19 @@ class ReinforceArm:
 
 
 class AcerArm:
-    """The ACER learner at ``bench_trainable.py:135-156``; ``step()`` runs one cycle."""
+    """The ACER learner at ``bench_trainable.py:135-156``; ``step()`` runs one cycle.  ``dtype``
+    is the spec's ``compute_dtype``; ``on_policy=None`` trains on every fresh sequence."""
 
-    def __init__(self, cfg: EnvConfig, games: int, device, packed: bool = False, seed: int = 2):
+    def __init__(self, cfg: EnvConfig, games: int, device, packed: bool = False, seed: int = 2,
+                 dtype: str = "float32", on_policy: Optional[int] = ACER_ON_POLICY):
         dev = resolve_device(device)
-        self.spec = MLPSpec(cfg.state_length + 1, hidden_sizes=HIDDEN, head_sizes=(1, 1))
+        self.spec = MLPSpec(cfg.state_length + 1, hidden_sizes=HIDDEN, head_sizes=(1, 1), compute_dtype=dtype)
         self.params = mlp_init(torch.Generator(device=dev).manual_seed(seed), self.spec, dev)
         self.adam = Adam(1e-3)
         self.opt_state = self.adam.init(self.params)
         self.buf = seq_init(ACER_CAPACITY, cfg.max_turns, vector.acer_sequence_example(cfg), device=dev)
         self.cycle = vector.make_acer_selfplay_step(cfg, self.spec, self.adam, games, minibatch=ACER_MINIBATCH,
-                                                    on_policy_sequences=ACER_ON_POLICY, packed_rows=packed, device=dev)
+                                                    on_policy_sequences=on_policy, packed_rows=packed, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def step(self) -> dict:

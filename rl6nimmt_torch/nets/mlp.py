@@ -11,6 +11,11 @@ every apply function takes precomputed noise dicts ``{"eps_in": [in, 1],
 "eps_out": [1, out]}`` so tests can inject the JAX package's noise.  Noise
 dicts may carry extra leading axes (e.g. one per turn); the effective-weight
 math broadcasts over them.
+
+``MLPSpec.compute_dtype="bfloat16"`` rounds both inputs of every product to
+bfloat16 and keeps a float32 result (:func:`_mm`, JAX's
+``preferred_element_type=float32``); parameters, biases and activations stay
+float32.  The default ``"float32"`` runs the plain ``x @ w``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ class MLPSpec:
     noisy: bool = False
     sigma_init: float = 0.5
     activation: str = "relu"
+    # The products' input dtype: "bfloat16" rounds both operands and keeps a
+    # float32 result (mixed precision; the parameters stay float32).
+    compute_dtype: str = "float32"
 
     @property
     def layer_sizes(self) -> Tuple[Tuple[int, int], ...]:
@@ -63,8 +71,26 @@ def linear_init(generator: torch.Generator, in_dim: int, out_dim: int, device="c
     return {"w": u(in_dim, out_dim), "b": u(out_dim)}
 
 
-def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"] + params["b"]
+def _mm(x: torch.Tensor, w: torch.Tensor, dtype: Optional[str] = None) -> torch.Tensor:
+    """``x @ w``, or with ``dtype="bfloat16"`` the product of the operands rounded
+    to bfloat16 with a float32 result (port of JAX's ``_mm``).
+
+    The rounded operands are widened and multiplied in float32: the product of
+    two bfloat16 values is exact in float32 (and in TF32), so this gives JAX's
+    values up to the float32 summation order on every device, and its autograd
+    (the casts' transposes) rounds each operand's gradient to bfloat16 as
+    JAX's transpose does.  The tensor cores' ``torch.mm(..., out_dtype=float32)``
+    is not used: a REINFORCE forward through it once missed these values on the
+    card by 1.14e-3 of the output's scale (``PARITY_TORCH.md`` section 20)."""
+    if dtype is None or dtype == "float32":
+        return x @ w
+    if dtype != "bfloat16":
+        raise ValueError(f"compute_dtype {dtype!r}: float32 or bfloat16")
+    return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.bfloat16).to(torch.float32)
+
+
+def linear_apply(params: dict, x: torch.Tensor, dtype: Optional[str] = None) -> torch.Tensor:
+    return _mm(x, params["w"], dtype) + params["b"]
 
 
 def noisy_linear_init(generator, in_dim: int, out_dim: int, sigma_init: float = 0.5,
@@ -106,7 +132,7 @@ def _factorized_noise(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def noisy_linear_apply(params: dict, x: torch.Tensor, noise: Optional[dict] = None,
-                       factorized: bool = True) -> torch.Tensor:
+                       factorized: bool = True, dtype: Optional[str] = None) -> torch.Tensor:
     """Noisy forward; ``noise=None`` runs the mean network.
 
     ``noise`` is a factorized pair (:func:`_factorized_noise`), or with
@@ -114,12 +140,13 @@ def noisy_linear_apply(params: dict, x: torch.Tensor, noise: Optional[dict] = No
     "b" [out]}``: ``w + sigma_w * w_noise``, ``b + sigma_b * b_noise``.
     """
     if noise is None:
-        return linear_apply(params, x)
+        return linear_apply(params, x, dtype)
     if not factorized:
-        return x @ (params["w"] + params["sigma_w"] * noise["w"]) + (params["b"] + params["sigma_b"] * noise["b"])
+        return (_mm(x, params["w"] + params["sigma_w"] * noise["w"], dtype)
+                + (params["b"] + params["sigma_b"] * noise["b"]))
     w_eff = params["w"] + params["sigma_w"] * (noise["eps_in"] * noise["eps_out"])
     b_eff = params["b"] + params["sigma_b"] * noise["eps_out"][..., 0, :]
-    return x @ w_eff + b_eff
+    return _mm(x, w_eff, dtype) + b_eff
 
 
 # ----------------------------------------------------------------------- MLP
@@ -171,7 +198,9 @@ def mlp_apply(spec: MLPSpec, params: dict, x: torch.Tensor,
     n_trunk = len(params["trunk"])
     n_layers = n_trunk + len(params["heads"])
     noises = list(noise) if (spec.noisy and noise is not None) else [None] * n_layers
-    apply = noisy_linear_apply if spec.noisy else (lambda p, v, nz: linear_apply(p, v))
+    dtype = spec.compute_dtype
+    apply = ((lambda p, v, nz: noisy_linear_apply(p, v, nz, dtype=dtype)) if spec.noisy
+             else (lambda p, v, nz: linear_apply(p, v, dtype)))
     h = x
     for p, nz in zip(params["trunk"], noises):
         h = act(apply(p, h, nz))

@@ -43,6 +43,19 @@ def greedy_replay_agreement(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, p
     """Play ``num_games`` with K4, replay them on the engine path, and return
     the (action agreement, score agreement) fractions.  Runs on the device of
     ``params`` (K4/K2/K1 on the card, the plain twins on the CPU)."""
+    (_, actions, rewards), (replay_actions, replay_scores) = greedy_replay(
+        cfg, dqn_cfg, spec, params, num_games, seed, turn_noise)
+    action_agree = (replay_actions == actions).float().mean().item()
+    score_agree = (replay_scores == rewards.sum(dim=0)).float().mean().item()
+    return action_agree, score_agree
+
+
+def greedy_replay(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, params,
+                  num_games: int, seed: int, turn_noise):
+    """K4's games from ``seed`` and their replay on the engine path:
+    ``((obs, actions, rewards) of K4, (actions [T, G, P], scores [G, P]) of
+    the replay)``.  Raises ``AssertionError`` unless the replay's deals (K2 on
+    the same seed) equal K4's t=0 observations."""
     eff = turn_effective_weights(spec, params, turn_noise)
     adv = 1 if dqn_cfg.dueling else 0
     play = make_act_rollout_kernel(cfg, num_games, hidden=spec.hidden_sizes[0])
@@ -63,10 +76,7 @@ def greedy_replay_agreement(cfg: EnvConfig, dqn_cfg: DQNConfig, spec: MLPSpec, p
         acts = torch.argmax(torch.where(masks, q, NEG_INF), dim=-1).to(torch.int32)
         state, _ = step(cfg, state, acts)
         replay_actions.append(acts)
-    replay_actions = torch.stack(replay_actions)
-    action_agree = (replay_actions == actions).float().mean().item()
-    score_agree = ((-state.scores) == rewards.sum(dim=0)).float().mean().item()
-    return action_agree, score_agree
+    return (obs, actions, rewards), (torch.stack(replay_actions), -state.scores)
 
 
 def fm_agreement(cfg: EnvConfig, num_games: int, hidden: int, seed: int, weights) -> None:

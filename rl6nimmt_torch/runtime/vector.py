@@ -533,7 +533,9 @@ def make_dqn_selfplay_step(
                 losses.append(loss)
         params, target_params, opt_state, buf = carry
         metrics = {
-            "loss": torch.stack(losses).mean(),     # each update's loss is averaged over the ranks already
+            # each update's loss is averaged over the ranks already; no update (learn_iters=0) reads NaN, as
+            # JAX's mean of no losses
+            "loss": torch.stack(losses).mean() if losses else torch.full((), float("nan"), device=dev),
             "mean_score": pmean_fused(scores.to(torch.float32).mean(), axis_name),
         }
         return params, target_params, opt_state, buf, metrics

@@ -17,6 +17,11 @@ import rl6nimmt_torch
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(rl6nimmt_torch.__path__, "rl6nimmt_torch."))
 
+# The twins of the JAX profiling, micro-benchmark and debug scripts, and of bench_trainable.py.
+PROFILER_TWINS = ("roofline_cycle", "profile_trainable", "profile_ab", "micro_cycle", "micro_cycle2", "micro_cycle3",
+                  "micro_cycle4", "micro_cycle5", "micro_per", "micro_acer", "debug_dqn", "debug_acer", "debug_mcts",
+                  "debug_gradflow", "act_rollout_probe", "bench_trainable")
+
 BLOCKER = (
     "import sys\n"
     "for name in ('jax', 'jaxlib', 'optax', 'flax', 'rl6nimmt_tpu'):\n"
@@ -68,7 +73,9 @@ def test_module_list_covers_the_ported_slice():
               "experiments.device_learn_strength_ab", "experiments.device_learn_speedup",
               "experiments.profile_devblock", "experiments.budget_saturation", "experiments.devblock_attrib",
               "experiments.prior_decoupled_eval", "experiments.puct_batch_ab", "experiments.devroot_equivalence",
-              "experiments.acer_onpolicy_ab", "experiments.arena_eval"):
+              "experiments.acer_onpolicy_ab", "experiments.arena_eval",
+              # the profilers, micro-benchmarks and debug scripts' twins
+              *(f"experiments.{m}" for m in PROFILER_TWINS), "experiments.chain_timing"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -123,6 +130,9 @@ def test_cuda_entry_points_raise_without_a_card():
     from rl6nimmt_torch.experiments import (acer_onpolicy_ab, budget_saturation, devblock_attrib,
                                             device_learn_speedup, device_learn_strength_ab, devroot_equivalence,
                                             prior_decoupled_eval, profile_devblock, puct_batch_ab)
+    import importlib
+
+    from rl6nimmt_torch.experiments import bench_trainable, debug_gradflow
 
     cfg = EnvConfig(4)
     cpu_hamster = DrunkHamster(seed=0, device="cpu")
@@ -240,6 +250,11 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: puct_batch_ab.main([]),
         lambda: devroot_equivalence.main([]),
         lambda: acer_onpolicy_ab.main([]),
+        # the profilers, micro-benchmarks and debug scripts' twins
+        *(lambda m=m: importlib.import_module(f"rl6nimmt_torch.experiments.{m}").main([]) for m in PROFILER_TWINS),
+        lambda: debug_gradflow.main(["--platform", "cuda"]),
+        lambda: trainable_bench.ReinforceArm(cfg, 8, "cuda", dtype="bfloat16"),
+        lambda: bench_trainable.DqnArm(cfg, 8, "cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -293,3 +308,15 @@ def test_export_surfaces_match_jax(package):
         assert port.__all__ == list(jax_all)
     if package == "rl6nimmt_torch.ops":
         assert {"resolve_turn", "resolve_turn_t"} <= set(port.__all__)
+
+
+def test_mlp_spec_fields_match_jax():
+    """``MLPSpec`` has JAX's fields with JAX's defaults, ``compute_dtype`` among them."""
+    import dataclasses
+
+    from rl6nimmt_tpu.nets import MLPSpec as JMLPSpec
+    from rl6nimmt_torch.nets import MLPSpec
+
+    fields = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(MLPSpec) == fields(JMLPSpec)
+    assert ("compute_dtype", "float32") in fields(MLPSpec)

@@ -829,3 +829,29 @@ def test_callback_game_on_the_card(monkeypatch, opponents):
     else:
         assert _build.LAUNCHES["resolve_turn"] > 10
     assert scores.shape == (1 + len(opponents),) and (scores <= 0).all()
+
+
+@pytest.mark.parametrize("x_shape,out", [((64, 47), 32), ((8, 4, 10, 100), 32), ((48,), 32),
+                                         ((64, 4, 10, 100), 1)])
+def test_bf16_product_on_card_matches_cpu_route(x_shape, out):
+    """``compute_dtype="bfloat16"`` on the card against the CPU: the rounded
+    operands' float32 product within float32 summation order (1e-4 of the
+    output's scale, under a bfloat16 ulp), gradients rounded to bfloat16 and
+    within two of its ulps; a one-column product among them (the nets' heads)."""
+    from rl6nimmt_torch.nets.mlp import _mm
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(sum(x_shape))
+    x0, w0 = torch.randn(x_shape, generator=gen), torch.randn(x_shape[-1], out, generator=gen)
+    g = torch.randn(x_shape[:-1] + (out,), generator=gen)
+    outs, grads = [], []
+    for d in (torch.device("cpu"), dev):
+        x, w = x0.to(d).requires_grad_(True), w0.to(d).requires_grad_(True)
+        y = _mm(x, w, "bfloat16")
+        assert y.dtype == torch.float32
+        outs.append(y.detach().cpu())
+        grads.append([t.cpu() for t in torch.autograd.grad(y, (x, w), g.to(d))])
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-4 * float(outs[0].abs().max())
+    for a, b in zip(grads[1], grads[0]):
+        assert torch.equal(a, a.to(torch.bfloat16).float())
+        assert bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-5 * float(b.abs().max())).all())
