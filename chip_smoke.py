@@ -166,17 +166,24 @@ process per source), then:
    ``debug_*`` host games and ``debug_gradflow``; then the bfloat16 forwards of
    the D3QN, REINFORCE and ACER nets and a REINFORCE gradient on the card
    against the CPU's, and K1, K2, K4 and K4 fm against their twins at every
-   shape the scripts launched them at.
+   shape the scripts launched them at;
+15. runs the ``main()`` of the weak-scaling bench's twin
+   (``experiments/scaling_bench.py``) at the JAX script's defaults (256 games a
+   device, 20 steps): over NCCL (the world-size-1 row, efficiency 1.0) and with
+   two gloo ranks sharing the card (rows 1 and 2, labelled a code-path check);
+   every rank, counting in its own process, must launch K2 once and K1 ten
+   times a step, warm-up included, and end with the same params hash; then K1
+   and K2 against their twins at P=4, G=256.
 
-Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp``, ``scripts``, ``evals`` and
-``profilers`` JSON lines,
+Prints the ``search``, ``learners``, ``tournament``, ``arena``, ``dp``, ``scripts``, ``evals``,
+``profilers`` and ``scaling`` JSON lines,
 one JSON line of kernels (K1's to K5's rows also carry their launch shape and ptxas line, K2's and
 K3's their ms and device ms at G=16,384, K4's its ms there, K1's row-major and
 K2's rows their launches on the search, the learners', the tournament's and the
 arena's path, K1's row-major, K2's, K4's in both layouts and K5's on the DP
 path, K1's, K2's, K4's and K5's on the scripts' path, K1's and K2's on the
-evaluation scripts' path, and K1's, K2's and K4's in both layouts on the
-profilers' path), the
+evaluation scripts' path, K1's, K2's and K4's in both layouts on the
+profilers' path, and K1's and K2's on the scaling path, summed over every rank), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when there
 is no CUDA device, when the package is missing, or when any check fails.
@@ -2013,6 +2020,82 @@ def profilers_phase(dev, card):
     return line, path, errs
 
 
+# Phase 15, the weak-scaling bench's twin at the JAX script's defaults (``experiments/scaling_bench.py:37-38``).
+SCALING_GAMES, SCALING_STEPS = 256, 20
+SCALING_RUNS = (("nccl", []), ("gloo_2", ["--backend", "gloo", "--max-devices", "2"]))
+SCALING_CHECK_SEED = 116
+
+
+def scaling_phase(dev, card):
+    """Phase 15: the ``main()`` of the weak-scaling bench's twin at its defaults
+    (SCALING_GAMES a device, SCALING_STEPS timed steps after one warm-up), over
+    NCCL (one rank a card: the world-size-1 row) and again with two gloo ranks
+    sharing the card (rows 1 and 2, labelled a code-path check).  Each rank
+    counts its own process's launches from 0 (the twin's ``worker`` sets them
+    to 0 first and reads them after its last step): every rank must launch K2
+    once and K1 ten times a step, warm-up included, and nothing else; the
+    ranks' param hashes must agree; the rows carry the JAX script's keys and
+    row 1 efficiency 1.0.  Then K1 and K2 against their twins at the launched
+    shape.  Returns the ``scaling`` line, the launches summed over every rank
+    and the largest differences of K1 and K2 from their twins."""
+    import contextlib
+    import io
+
+    from rl6nimmt_torch.engine import EnvConfig
+    from rl6nimmt_torch.experiments import scaling_bench
+    from rl6nimmt_torch.ops import _build
+
+    cfg = EnvConfig(4)
+    line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
+    jax_keys = {"devices", "ms_per_update", "games_per_s", "efficiency"}
+    per_rank = {"deal_games": SCALING_STEPS + 1, "resolve_turn": cfg.max_turns * (SCALING_STEPS + 1)}
+    for name, argv in SCALING_RUNS:
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = scaling_bench.main(argv)
+        seconds = time.perf_counter() - t0
+        text = printed.getvalue().strip().splitlines()
+        sizes = scaling_bench.device_counts(2 if name == "gloo_2" else torch.cuda.device_count())
+        shared = name == "gloo_2"
+        rows = res["rows"]
+        if [r["devices"] for r in rows] != sizes or any(set(r) != jax_keys for r in rows) \
+                or rows[0]["efficiency"] != 1.0 or res["virtual_mesh"] != shared \
+                or json.loads(text[-1]) != {"virtual_mesh": shared, "rows": rows} \
+                or sum("code-path check only" in t for t in text) != (len(rows) if shared else 0):
+            raise AssertionError(f"scaling_bench {argv}: {text}")
+        for r in rows:
+            if not (math.isfinite(r["ms_per_update"]) and r["ms_per_update"] > 0 and math.isfinite(r["efficiency"])
+                    and abs(r["games_per_s"] * r["ms_per_update"] / 1e3 - r["devices"] * SCALING_GAMES) < 1e-6
+                    * r["devices"] * SCALING_GAMES):
+                raise AssertionError(f"scaling_bench {argv}: row {r}")
+        for world in res["worlds"]:
+            ranks = world["ranks"]
+            if len(ranks) != world["devices"] or len({r["params_digest"] for r in ranks}) != 1:
+                raise AssertionError(f"scaling_bench {argv}: {world['devices']} ranks' params differ")
+            for r in ranks:
+                if r["launches"] != per_rank or not math.isfinite(r["metrics"]["loss"]) \
+                        or not -1040 <= r["metrics"]["mean_score"] < 0:
+                    raise AssertionError(f"scaling_bench {argv}, {world['devices']} ranks, rank {r['rank']}: "
+                                         f"launches {r['launches']} (want {per_rank}), metrics {r['metrics']}")
+                for k, v in r["launches"].items():
+                    path[k] += v
+        line[name] = {"seconds": seconds, "virtual_mesh": res["virtual_mesh"], "rows": rows, "printed": text,
+                      "launches_per_rank": {w["devices"]: [r["launches"] for r in w["ranks"]] for w in res["worlds"]},
+                      "ms_per_update_by_rank": {w["devices"]: [r["seconds_per_update"] * 1e3 for r in w["ranks"]]
+                                                for w in res["worlds"]}}
+        log(f"[15] scaling_bench {' '.join(argv) or '(defaults: nccl)'} ({seconds:.1f} s): " + "; ".join(
+            f"world {r['devices']}: {r['ms_per_update']:.2f} ms/update, {r['games_per_s']:.0f} games/s, "
+            f"eff {r['efficiency']:.3f}" for r in rows) + f"; every rank {per_rank}, params equal across ranks"
+            + ("; code-path check only" if shared else ""))
+    line["phase_launches"] = {k: v for k, v in path.items() if v}
+    # K1 and K2 against their twins at the launched shape; these launches are not the path's.
+    errs = k1_k2_against_twins(cfg, [SCALING_GAMES], SCALING_CHECK_SEED, dev)
+    line["twin_max_abs_err"] = errs
+    log(f"[15] K1/K2 bit-exact vs twins at P=4, G={SCALING_GAMES}")
+    return line, path, errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
@@ -2595,6 +2678,20 @@ def main():
     if missing:
         raise AssertionError(f"kernels never launched on the profilers' path: {missing}")
     print(json.dumps({"profilers": profilers_line}), flush=True)
+
+    # ------------------------------------------------------------ phase 15
+    t0 = time.perf_counter()
+    scaling_line, scaling_launches, scaling_errs = scaling_phase(dev, card)
+    scaling_line["phase_s"] = time.perf_counter() - t0
+    log(f"[15] the weak-scaling bench took {scaling_line['phase_s']:.1f} s")
+    for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games"):
+            row["scaling_path_launches"] = scaling_launches[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], scaling_errs[row["name"]])
+    missing = [k for k in ("resolve_turn", "deal_games") if not scaling_launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the scaling path: {missing}")
+    print(json.dumps({"scaling": scaling_line}), flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

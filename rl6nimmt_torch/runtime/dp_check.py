@@ -15,6 +15,9 @@ of 1, 2 and (with four ranks) 4 ranks and a 2-level mesh:
   state, agree bit for bit;
 * ``size1``: on a 1-rank mesh the DP REINFORCE step, DQN cycle and ACER cycle
   equal the plain ones bit for bit;
+* ``reinforce_steps``: the DP REINFORCE step on each 1-D mesh over injected
+  draws (one a rank a step, e.g. JAX's per-device keys replayed), from given
+  params, under SGD and Adam: each step's loss, mean score and params;
 * ``pmean``: :func:`~..utils.ops.pmean_fused` of a tree equals the per-leaf
   means (one ``all_reduce`` a leaf), and is the tree itself on one rank;
   ``allreduce_ms`` times it at ``allreduce_floats`` (given) on each mesh, and
@@ -49,8 +52,8 @@ from ..parallel import (make_dp_acer_step, make_dp_dqn_step, make_dp_reinforce_s
                         replicated, stack_for_mesh)
 from ..utils.device import synchronize
 from ..utils.ops import ALLREDUCES
-from .vector import (acer_sequence_example, dqn_replay_example, make_acer_selfplay_step, make_dqn_selfplay_step,
-                     make_reinforce_train_step)
+from .vector import (RolloutRandomness, acer_sequence_example, dqn_replay_example, make_acer_selfplay_step,
+                     make_dqn_selfplay_step, make_reinforce_train_step)
 
 STATE = 47
 
@@ -112,6 +115,28 @@ def _reinforce(cfg, games, device, mesh=None, hidden=(16,)):
     if mesh is None:
         return make_reinforce_train_step(cfg, spec, opt, games, device=device), params, opt.init(params)
     return make_dp_reinforce_step(cfg, spec, opt, games, mesh), params, opt.init(params)
+
+
+def _reinforce_steps(cfg, case: dict, mesh, device) -> dict:
+    """The DP REINFORCE step over ``mesh`` from the case's params (JAX layout), on
+    the case's draws for this mesh's size (``[step][index] -> {"gumbel",
+    "decks"}``), under each optimizer of ``case["lr"]``: per step the loss, the
+    mean score and the params, and whether the ranks end bit-identical."""
+    spec = MLPSpec(input_size=cfg.state_length + 1, hidden_sizes=tuple(case["hidden"]), head_sizes=(1,))
+    out = {}
+    for name, lr in case["lr"].items():
+        opt = Sgd(lr) if name == "sgd" else Adam(lr)
+        params = params_from_jax(case["params"], device)
+        state = opt.init(params)
+        step = make_dp_reinforce_step(cfg, spec, opt, case["games"], mesh)
+        steps = []
+        for draws in case["randomness"][mesh.size]:
+            rnd = RolloutRandomness(**_tensors(draws[mesh.index], device))
+            params, state, m = step(params, state, rnd)
+            steps.append({"loss": float(m["loss"]), "mean_score": float(m["mean_score"]),
+                          "params": params_to_numpy(params)})
+        out[name] = {"steps": steps, "replicated": replicated(mesh).check(params)}
+    return out
 
 
 def _dqn_cycle(cfg, case, device, mesh=None):
@@ -233,7 +258,7 @@ def _block_scores(mesh, device, games: int, seed: int = 123):
     return scores.cpu().numpy()
 
 
-def run_checks(rank: int, world: int, inputs: dict, device="cpu"):
+def run_checks(rank: int, world: int, inputs: dict, device="cuda"):
     """Every check above on this rank; rank 0's results (numpy), else None."""
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,6 +301,13 @@ def run_checks(rank: int, world: int, inputs: dict, device="cpu"):
             runs = [step(params, opt, mesh.generator(11)) for _ in range(2)]
             out["replicated"][f"reinforce_{mname}"] = replicated(mesh).check(runs[0][0])
             out["rerun"][f"reinforce_{mname}"] = trees_equal(runs[0], runs[1])
+
+    # The DP REINFORCE step on injected draws, for the caller's reference (JAX's shard_map step).
+    if "reinforce_steps" in inputs:
+        for mname, mesh in members.items():
+            if len(mesh.axis_names) == 1 and mesh.size in inputs["reinforce_steps"]["randomness"]:
+                out.setdefault("reinforce_steps", {})[mname] = _reinforce_steps(cfg, inputs["reinforce_steps"],
+                                                                               mesh, device)
 
     # A 1-rank mesh is the plain step, bit for bit.
     if "n1" in members:

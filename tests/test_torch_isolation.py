@@ -75,7 +75,9 @@ def test_module_list_covers_the_ported_slice():
               "experiments.prior_decoupled_eval", "experiments.puct_batch_ab", "experiments.devroot_equivalence",
               "experiments.acer_onpolicy_ab", "experiments.arena_eval",
               # the profilers, micro-benchmarks and debug scripts' twins
-              *(f"experiments.{m}" for m in PROFILER_TWINS), "experiments.chain_timing"):
+              *(f"experiments.{m}" for m in PROFILER_TWINS), "experiments.chain_timing",
+              # the weak-scaling bench's twin
+              "experiments.scaling_bench"):
         assert "rl6nimmt_torch." + m in MODULES
 
 
@@ -132,7 +134,7 @@ def test_cuda_entry_points_raise_without_a_card():
                                             prior_decoupled_eval, profile_devblock, puct_batch_ab)
     import importlib
 
-    from rl6nimmt_torch.experiments import bench_trainable, debug_gradflow
+    from rl6nimmt_torch.experiments import bench_trainable, debug_gradflow, scaling_bench
 
     cfg = EnvConfig(4)
     cpu_hamster = DrunkHamster(seed=0, device="cpu")
@@ -255,6 +257,9 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: debug_gradflow.main(["--platform", "cuda"]),
         lambda: trainable_bench.ReinforceArm(cfg, 8, "cuda", dtype="bfloat16"),
         lambda: bench_trainable.DqnArm(cfg, 8, "cuda"),
+        # the weak-scaling bench's twin: NCCL needs a card whatever --device says
+        lambda: scaling_bench.main([]),
+        lambda: scaling_bench.main(["--backend", "nccl", "--device", "cpu"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -292,7 +297,8 @@ NOT_EXPORTED = {
 
 @pytest.mark.parametrize("package", ["rl6nimmt_torch", "rl6nimmt_torch.engine", "rl6nimmt_torch.runtime",
                                      "rl6nimmt_torch.utils", "rl6nimmt_torch.ops", "rl6nimmt_torch.buffers",
-                                     "rl6nimmt_torch.nets", "rl6nimmt_torch.parallel", "rl6nimmt_torch.parity"])
+                                     "rl6nimmt_torch.nets", "rl6nimmt_torch.parallel", "rl6nimmt_torch.parity",
+                                     "rl6nimmt_torch.agents", "rl6nimmt_torch.tournament"])
 def test_export_surfaces_match_jax(package):
     """Each package exports the JAX package's names (less the ones stated above),
     importable with JAX blocked and without a card; the root, ``runtime``,
