@@ -242,7 +242,7 @@ MATCHES = (("bench", ("puct", "uniform"), 128, 200),
 LEARNER_STEPS = 3          # steps or cycles per learner for the rates and the counts
 LEARNER_CHECK_GAMES = 64   # the card-against-CPU run
 HOST_GAMES = 4             # host-loop games (ACER's warmup needs 3 flushes)
-SPANS = ("cycle.", "reinforce.", "acer.")
+SPANS = ("cycle.", "reinforce.", "acer.", "engine.", "nets.", "arena.")
 
 # Phase 9, the tournament: the published experiment's population
 # (experiments/simple_tournament.py:113-125) in Tournament(2, 4); the host
@@ -292,8 +292,9 @@ def host_seconds(fn, iters):
 def profile_call(fn, label):
     """One traced call: wall time, device busy time, idle share, the host
     time of the phase spans (``cycle.*``: a DQN cycle's three phases;
-    ``reinforce.*`` and ``acer.*``: the learners') and the ops with the most
-    device time."""
+    ``reinforce.*`` and ``acer.*``: the learners'; ``engine.*``, ``nets.*``
+    and ``arena.*``: the engine's, the nets' and the arena seats', nested in
+    them) and the ops with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -339,7 +340,8 @@ def trace_kernels(fn, label):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
+        # A span's device-side copy (the program's engine.* and nets.* spans among them) is no work.
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             ms, calls = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
     if not by_name:

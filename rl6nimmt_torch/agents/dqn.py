@@ -43,6 +43,7 @@ import torch
 from ..buffers.host import HostHistory, HostPriorityBuffer
 from ..nets import MLPSpec, draw_mlp_noise, dueling_apply, mlp_apply, mlp_init
 from ..utils.ops import onehot_select, pmean_fused
+from ..utils.spans import span
 from .base import Agent
 
 MASK_VALUE = -1e8
@@ -71,11 +72,12 @@ def q_network_spec(cfg: DQNConfig, state_length: int, num_actions: int) -> MLPSp
 
 
 def q_values(cfg: DQNConfig, spec: MLPSpec, params, states, noise=None):
-    """Q(s, .) for a batch of raw states."""
-    if cfg.dueling:
-        return dueling_apply(spec, params, states, noise)
-    (q,) = mlp_apply(spec, params, states, noise)
-    return q
+    """Q(s, .) for a batch of raw states, inside the ``nets.q`` span."""
+    with span("nets.q"):
+        if cfg.dueling:
+            return dueling_apply(spec, params, states, noise)
+        (q,) = mlp_apply(spec, params, states, noise)
+        return q
 
 
 # ------------------------------------------------------------------- pytrees

@@ -31,6 +31,7 @@ from ..nets import MLPSpec, linear_apply, mlp_apply, mlp_init, normalize_state
 from ..nets.mlp import _activation, _mm
 from ..utils.ops import onehot_select
 from ..utils.returns import discounted_returns
+from ..utils.spans import span
 from .base import Agent, pad_cards
 from .dqn import grad_leaves, optimizer_step
 
@@ -48,10 +49,11 @@ def action_in_input_logits(spec: MLPSpec, params, state, legal_cards):
     """One logit per candidate row ``[action | state]``: ``f32[..., H]``.
 
     ``state`` is ``f32[..., S]`` and ``legal_cards`` ``int[..., H]`` padded with
-    -1; padded rows get ``NEG_INF``.
+    -1; padded rows get ``NEG_INF``.  Runs inside the ``nets.policy`` span.
     """
-    heads = action_in_input_heads(spec, params, state, legal_cards)
-    return torch.where(legal_cards >= 0, heads[0][..., 0], NEG_INF)
+    with span("nets.policy"):
+        heads = action_in_input_heads(spec, params, state, legal_cards)
+        return torch.where(legal_cards >= 0, heads[0][..., 0], NEG_INF)
 
 
 def action_in_input_heads(spec: MLPSpec, params, state, legal_cards):

@@ -10,6 +10,9 @@ Every function works on a batch of ``G`` games (leading axis) with no vmap:
   stay in torch, as in the JAX ``step``.
 * :func:`observe` -- the 47-dim per-player observation plus the legal mask.
 * :func:`is_done` -- hand-0-empty termination.
+
+Dealing, :func:`observe` and a turn (:func:`step_with`, so :func:`step` and the
+plain twins alike) each run inside an ``engine.*`` span (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.spans import span
 from .state import EnvConfig, EnvState
 
 
@@ -68,22 +72,24 @@ def init_from_deck(cfg: EnvConfig, decks: torch.Tensor) -> EnvState:
     """
     P, C, H, R, T = (cfg.num_players, cfg.num_cards, cfg.hand_size,
                      cfg.num_rows, cfg.threshold)
-    decks = decks.to(torch.int32)
-    G = decks.shape[0]
-    hands_sorted = torch.sort(decks[:, : P * H].reshape(G, P, H), dim=-1).values
-    seeds = decks[:, C - 1 - torch.arange(R, device=decks.device)]
-    board = torch.full((G, R, T), -1, dtype=torch.int32, device=decks.device)
-    board[:, :, 0] = seeds
-    row_len = torch.ones((G, R), dtype=torch.int32, device=decks.device)
-    return state_from_deal(cfg, board, row_len, hands_sorted)
+    with span("engine.deal"):
+        decks = decks.to(torch.int32)
+        G = decks.shape[0]
+        hands_sorted = torch.sort(decks[:, : P * H].reshape(G, P, H), dim=-1).values
+        seeds = decks[:, C - 1 - torch.arange(R, device=decks.device)]
+        board = torch.full((G, R, T), -1, dtype=torch.int32, device=decks.device)
+        board[:, :, 0] = seeds
+        row_len = torch.ones((G, R), dtype=torch.int32, device=decks.device)
+        return state_from_deal(cfg, board, row_len, hands_sorted)
 
 
 def deal(cfg: EnvConfig, seed: int, num_games: int, device="cuda") -> EnvState:
     """Deal ``num_games`` fresh games from Philox ``seed`` (K2 on the card)."""
     from ..ops.game_kernel import deal_games
 
-    board, row_len, hands_sorted = deal_games(cfg, seed, num_games, device=device)
-    return state_from_deal(cfg, board, row_len, hands_sorted)
+    with span("engine.deal"):
+        board, row_len, hands_sorted = deal_games(cfg, seed, num_games, device=device)
+        return state_from_deal(cfg, board, row_len, hands_sorted)
 
 
 # --------------------------------------------------------------------- scoring
@@ -157,20 +163,21 @@ def step(cfg: EnvConfig, state: EnvState, actions: torch.Tensor) -> Tuple[EnvSta
 def step_with(cfg: EnvConfig, state: EnvState, actions: torch.Tensor, resolve):
     """:func:`step` with an explicit board resolver (the plain twins pass
     ``ops.step_kernel.resolve_turn_plain`` so they never launch a kernel)."""
-    actions = actions.to(torch.int32).contiguous()
-    board, row_len, rewards = resolve(cfg, state.board, state.row_len, actions)
+    with span("engine.step"):
+        actions = actions.to(torch.int32).contiguous()
+        board, row_len, rewards = resolve(cfg, state.board, state.row_len, actions)
 
-    cards = torch.arange(cfg.num_cards, device=actions.device, dtype=torch.int32)
-    hands = state.hands & (cards != actions[..., None])
+        cards = torch.arange(cfg.num_cards, device=actions.device, dtype=torch.int32)
+        hands = state.hands & (cards != actions[..., None])
 
-    return EnvState(
-        board=board,
-        row_len=row_len,
-        hands=hands,
-        hands_sorted=shift_hands(state.hands_sorted, actions),
-        scores=state.scores - rewards,
-        turn=state.turn + 1,
-    ), rewards
+        return EnvState(
+            board=board,
+            row_len=row_len,
+            hands=hands,
+            hands_sorted=shift_hands(state.hands_sorted, actions),
+            scores=state.scores - rewards,
+            turn=state.turn + 1,
+        ), rewards
 
 
 def shift_hands(hands_sorted: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
@@ -216,12 +223,13 @@ def observe(cfg: EnvConfig, state: EnvState) -> Tuple[torch.Tensor, torch.Tensor
     Layout (reference env.py:174-212): ``hand(10) | num_players |
     [cards/row | highest/row | points/row] | board RxT``.
     """
-    game = game_features(cfg, state.board, state.row_len)
-    G, P = state.hands_sorted.shape[:2]
-    obs = torch.cat(
-        [state.hands_sorted, game[:, None, :].expand(G, P, game.shape[1])], dim=2
-    )
-    return obs.to(torch.float32), state.hands
+    with span("engine.observe"):
+        game = game_features(cfg, state.board, state.row_len)
+        G, P = state.hands_sorted.shape[:2]
+        obs = torch.cat(
+            [state.hands_sorted, game[:, None, :].expand(G, P, game.shape[1])], dim=2
+        )
+        return obs.to(torch.float32), state.hands
 
 
 def legal_mask(state: EnvState) -> torch.Tensor:

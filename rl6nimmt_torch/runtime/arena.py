@@ -6,6 +6,7 @@ whose acting rule is one net forward -- random, REINFORCE, ACER, any DQN --
 a whole matchup runs on the card instead: one K2 deal (``engine.deal``), then
 every turn each seat's rule over all G games and one K1 resolution
 (``engine.step``).  Search and human agents keep the host ``GameSession``.
+Each seat's rule runs inside an ``arena.seat.<kind>`` span (``utils/spans.py``).
 
 Acting rules, as JAX's (``PARITY_TORCH.md`` section 15):
 
@@ -39,6 +40,7 @@ from ..engine import EnvConfig, EnvState, deal, observe, step
 from ..nets import draw_mlp_noise
 from ..utils.device import resolve_device
 from ..utils.ops import onehot_select, uniform_index
+from ..utils.spans import span
 
 NEG_INF = -1e9
 
@@ -124,6 +126,7 @@ def make_arena(cfg: EnvConfig, policies: Tuple[SeatPolicy, ...], num_games: int,
     assert len(policies) == cfg.num_players
     dev = resolve_device(device)
     G, P, H = num_games, cfg.num_players, cfg.hand_size
+    seat_spans = tuple(f"arena.seat.{pol.kind}" for pol in policies)
 
     def run(params_tuple, eps_tuple, noise):
         if isinstance(noise, ArenaNoise):
@@ -138,11 +141,12 @@ def make_arena(cfg: EnvConfig, policies: Tuple[SeatPolicy, ...], num_games: int,
         for t in range(cfg.max_turns):
             obs, masks = observe(cfg, state)
             turn = draws(t)
-            actions = torch.stack([
-                _seat_actions(policies[p], params_tuple[p], eps_tuple[p], obs[:, p], state.hands_sorted[:, p],
-                              masks[:, p], turn[p]).to(torch.int32)
-                for p in range(P)], dim=1)
-            state, _ = step(cfg, state, actions)
+            actions = []
+            for p in range(P):
+                with span(seat_spans[p]):
+                    actions.append(_seat_actions(policies[p], params_tuple[p], eps_tuple[p], obs[:, p],
+                                                 state.hands_sorted[:, p], masks[:, p], turn[p]).to(torch.int32))
+            state, _ = step(cfg, state, torch.stack(actions, dim=1))
         return -state.scores
 
     return run

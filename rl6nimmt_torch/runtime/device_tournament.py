@@ -62,7 +62,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..agents.acer import BatchedACERAgent, actor_critic_heads
 from ..agents.device_search import (
@@ -92,6 +91,7 @@ from ..engine import EnvConfig, EnvState, deal, observe, step
 from ..nets import MLPSpec, draw_mlp_noise, dueling_apply, mlp_apply, noisy_effective_params
 from ..nets.mlp import _activation
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .device_learn import make_planner
 from .device_match import board_seen
 
@@ -725,7 +725,7 @@ class DeviceBlockSession:
         fn = self.block_fn(inputs)
         gen = torch.Generator(device=self.device).manual_seed(int(np.random.randint(0, 2**31 - 1)))
         t1 = time.perf_counter()
-        with record_function("block.play"):
+        with span("block.play"):
             if self.mesh is None:
                 scores, traj, final_obs = fn(inputs.params, inputs.lparams, inputs.kinds, inputs.mc_maxes,
                                              inputs.mc_pers, inputs.c_pucts, inputs.epses, gen)
@@ -798,7 +798,7 @@ class DeviceBlockSession:
         # forward returns and its learn consumes: search/pv/reinforce step
         # records, ACER's behaviour log_probs + action_id, nothing for DQN or
         # random seats.
-        with record_function("block.learn"):
+        with span("block.learn"):
             for g, agents in enumerate(self.lineups):
                 prev_rewards = np.zeros(P, np.int64)
                 for t in range(H):

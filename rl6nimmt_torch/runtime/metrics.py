@@ -12,6 +12,9 @@
 * :func:`plot_grad_flow` -- the reference's matplotlib gradient-flow figure
   over a gradient tree (matplotlib is imported by the call alone).
 * :func:`trace` -- a ``torch.profiler`` session that writes a Chrome trace.
+* :func:`span` -- a named span of the work inside it, a ``record_function``
+  range while a profiler runs and a shared null context otherwise
+  (``utils/spans.py``; the port opens every span with it).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.ops import leaves_with_paths
+from ..utils.spans import span  # noqa: F401  (re-exported)
 
 logger = logging.getLogger(__name__)
 

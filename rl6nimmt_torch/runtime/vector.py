@@ -36,7 +36,6 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..agents.dqn import (Adam, DQNConfig, grad_leaves, grads_of, learn_noise, make_learn_step, optimizer_apply,
                           q_network_spec, q_values)
@@ -54,6 +53,7 @@ from ..ops.step_kernel import resolve_turn_t
 from ..utils.device import resolve_device
 from ..utils.ops import onehot_select, pmean_fused, uniform_index
 from ..utils.returns import discounted_returns
+from ..utils.spans import span
 
 NEG_INF = -1e9
 
@@ -479,37 +479,37 @@ def make_dqn_selfplay_step(
     def play_and_insert(params, rnd: CycleRandomness, buf, eps):
         """Rollout and replay insert of one cycle; returns ``(buf, scores)``."""
         if kernel_insert:
-            with record_function("cycle.rollout"):
+            with span("cycle.rollout"):
                 st = buf.storage
                 insert = make_act_insert_kernel(cfg, G, dqn_cfg.hidden_sizes[0], buf.capacity,
                                                 gamma, n, reward_lag)
                 planes = insert(
                     rnd.deal_seed, buf.ptr, *act_weights(params, rnd),
                     st["state"], st["next_state"], st["scalars"])
-            with record_function("cycle.insert"):
+            with span("cycle.insert"):
                 buf = per_mark_batch(buf, dict(zip(("state", "next_state", "scalars"), planes[:3])),
                                      T * G * P)
             return buf, planes[3].reshape(T, P, G).to(torch.float32).sum(dim=0)
         store_dtype = buf.storage["state"].dtype
         if feature_major:
-            with record_function("cycle.rollout"):
+            with span("cycle.rollout"):
                 if kernel_act_rollout:
                     obs_fm, actions_fm, rewards_fm = rollout_kernel(params, rnd, store_dtype)
                 else:
                     obs_fm, actions_fm, rewards_fm = row_major_to_fm(*rollout(params, rnd, eps, store_dtype)[:4])
-            with record_function("cycle.insert"):
+            with span("cycle.insert"):
                 transitions = to_transitions_fm(cfg, gamma, n, reward_lag, obs_fm, actions_fm, rewards_fm)
                 if per_aligned_capacity is not None:
                     buf = per_add_batch_aligned(buf, transitions, per_aligned_capacity, slot_axis=-1)
                 else:
                     buf = per_add_batch(buf, transitions, slot_axis=-1)
             return buf, rewards_fm.reshape(T, P, G).to(torch.float32).sum(dim=0)
-        with record_function("cycle.rollout"):
+        with span("cycle.rollout"):
             if kernel_act_rollout:
                 obs, actions, rewards, next_obs, scores = rollout_kernel(params, rnd, store_dtype)
             else:
                 obs, actions, rewards, next_obs, scores = rollout(params, rnd, eps, store_dtype)
-        with record_function("cycle.insert"):
+        with span("cycle.insert"):
             transitions = to_transitions(cfg, gamma, n, reward_lag, obs, actions, rewards, next_obs)
             if dqn_cfg.per and per_aligned_capacity is not None:
                 buf = per_add_batch_aligned(buf, transitions, per_aligned_capacity)
@@ -526,7 +526,7 @@ def make_dqn_selfplay_step(
         buf, scores = play_and_insert(params, rnd, buf, eps)
         carry = (params, target_params, opt_state, buf)
         losses = []
-        with record_function("cycle.learn"):
+        with span("cycle.learn"):
             for i in range(learn_iters):
                 noise = rnd.learn_noise[i] if dqn_cfg.noisy else None
                 carry, loss = learn_once(carry, step0 + i, rnd.per_uniforms[i], noise)
@@ -701,15 +701,15 @@ def make_reinforce_train_step(
     def train_step(params, opt_state, rng):
         rnd = rng if isinstance(rng, RolloutRandomness) else draw_rollout_randomness(cfg, G, rng)
         # The three spans name the step's phases in a torch.profiler trace.
-        with record_function("reinforce.rollout"):
+        with span("reinforce.rollout"):
             leaves, live = grad_leaves(params)
             loss, scores = loss_fn(live, rnd)
-        with record_function("reinforce.backward"):
+        with span("reinforce.backward"):
             grads = grads_of(loss, leaves, params)
         metrics = {"loss": loss.detach(), "mean_score": scores.to(torch.float32).mean()}
         if axis_name is not None:
             grads, metrics = pmean_fused((grads, metrics), axis_name)
-        with record_function("reinforce.adam"):
+        with span("reinforce.adam"):
             params, opt_state = optimizer_apply(optimizer, params, opt_state, grads)
         return params, opt_state, metrics
 
@@ -827,11 +827,11 @@ def make_acer_selfplay_step(
     def cycle(params, opt_state, buf, rng):
         rnd = rng if isinstance(rng, AcerRandomness) else None
         # The four spans name the cycle's phases in a torch.profiler trace.
-        with record_function("acer.rollout"):
+        with span("acer.rollout"):
             seqs, scores = rollout(params, rnd.rollout if rnd else draw_rollout_randomness(cfg, G, rng))
-        with record_function("acer.store"):
+        with span("acer.store"):
             buf = seq_store_batch(buf, {k: v for k, v in seqs.items() if k != "length"}, seqs["length"])
-        with record_function("acer.on"):
+        with span("acer.on"):
             on_batch = seqs
             if k_on is not None and k_on < n_fresh:
                 if rnd is None:
@@ -842,7 +842,7 @@ def make_acer_selfplay_step(
                         raise ValueError(f"expected {k_on} on-policy indices in [0, {n_fresh}), got {idx}")
                 on_batch = {k: v[idx.to(dev)] for k, v in seqs.items()}
             params, opt_state, on_losses = train(params, opt_state, on_batch)
-        with record_function("acer.off"):
+        with span("acer.off"):
             _, batch, lengths = seq_sample(buf, minibatch, idx=rnd.off_idx if rnd else None,
                                            generator=None if rnd else rng)
             params, opt_state, off_losses = train(params, opt_state, dict(batch, length=lengths))
