@@ -214,6 +214,14 @@ K2_K3_INSTANCES = tuple(f"{k}_kernel<{sizes}>" for k in ("deal_games", "play_ran
 # K6 env's and obs's, the same pair each (they play K3's games in K3's design), and K7's k7.
 K6_K7_INSTANCES = tuple(f"act_ablate_{v}_kernel<{sizes}>" for v in ("env", "obs")
                         for sizes in (K2_K3_FLAGSHIP, "0,0,0,0,0")) + ("probe_k7_kernel",)
+# The action-in-input policy forward (policy_mlp): one instance, no template.
+POLICY_INSTANCES = ("policy_mlp_kernel",)
+# Its shapes on the benchmark cells' paths, at the REINFORCE net's width: a
+# train step's turn 0 (65,536 games x 4 seats, all 10 slots live) and a
+# REINFORCE evaluation match's seat (131,072 games, 10 slots, 0-10 live).
+POLICY_D = 100
+POLICY_TRAIN_ROWS = 262_144
+POLICY_EVAL_ROWS = 131_072
 PER_CAPACITY = 200_000
 KD_CAPACITY = 204_800      # bench.py line 3: per_init_kd capacity, 40 x T*P*128
 KD_PTR = 163_840           # tile regions from block 8 on wrap past the ring end
@@ -359,6 +367,46 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def policy_inputs(dev, M, S, seed, live="all"):
+    """``(shared, cards, weights)`` of the action-in-input forward at width
+    POLICY_D: a net drawn as ``mlp_init`` draws it, ``shared`` the state
+    product of uniform states in [-1, 1], ``cards int32[M, S]`` whose first n
+    slots a row hold cards and the rest -1 (n = S, or uniform in 0..S with
+    ``live="random"``)."""
+    from rl6nimmt_torch.nets import MLPSpec, mlp_init
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = mlp_init(gen, MLPSpec(48, hidden_sizes=(POLICY_D, POLICY_D)), dev)
+    w1, b1 = params["trunk"][0]["w"], params["trunk"][0]["b"]
+    shared = (torch.rand((M, 47), generator=gen, device=dev) * 2 - 1) @ w1[1:] + b1
+    cards = torch.randint(0, 104, (M, S), generator=gen, device=dev, dtype=torch.int32)
+    n = torch.randint(0, S + 1, (M, 1), generator=gen, device=dev) if live == "random" else S
+    cards = torch.where(torch.arange(S, device=dev) < n, cards, -1)
+    return shared, cards, (w1[0], params["trunk"][1]["w"], params["trunk"][1]["b"], params["heads"][0]["w"],
+                           params["heads"][0]["b"])
+
+
+def policy_against_twin(shared, cards, w):
+    """The wrapper ``policy_logits`` against ``policy_mlp_plain`` on card
+    tensors: NEG_INF exactly on the padded slots, and every live logit within
+    1e-5 of its row's scale, the largest over the row's live slots of
+    ``|b3| + sum |h2 * w3|`` (the twin's h2), which bounds a logit's float32
+    round-off.  Returns the largest absolute gap."""
+    from rl6nimmt_torch.ops.policy_mlp import NEG_INF, policy_logits, policy_mlp_plain
+
+    with torch.no_grad():
+        got = policy_logits(shared, cards, *w, 103.0)
+        want, _, h2 = policy_mlp_plain(shared, cards, *w, 103.0, save=True)
+        live = cards >= 0
+        terms = (h2 * w[3][:, 0]).abs().sum(dim=-1) + w[4].abs()
+        scale = torch.where(live, terms, 0.0).amax(dim=-1, keepdim=True).clamp(min=1e-30)
+        gap = float(torch.where(live, (got - want).abs() / scale, 0.0).max())
+    if not torch.equal(got == NEG_INF, ~live) or gap > 1e-5:
+        raise AssertionError(f"policy_mlp vs twin at {tuple(cards.shape)}: {gap:.3g} of the row scale, "
+                             f"NEG_INF pattern {'equal' if torch.equal(got == NEG_INF, ~live) else 'differs'}")
+    return max_abs_err([(got[live], want[live])])
+
+
 def max_abs_err(pairs):
     return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in pairs)
 
@@ -402,7 +450,7 @@ def search_phase(dev, card):
                                                      make_unified_decision_fn)
     from rl6nimmt_torch.engine import EnvConfig
     from rl6nimmt_torch.nets import MLPSpec, mlp_init
-    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.ops import _build, policy_mlp
     from rl6nimmt_torch.runtime.device_match import make_device_match_fn, playout_turns_per_seat
     from rl6nimmt_torch.runtime.search_check import card_against_cpu, search_position
 
@@ -455,6 +503,7 @@ def search_phase(dev, card):
         seat_params = tuple(mparams if k in ("puct", "policy") else None for k in roster)
         torch.cuda.synchronize()
         _build.reset_launches()
+        policy_mlp.FALLBACKS["policy_mlp"] = 0
         t0 = time.perf_counter()
         scores = fn(seat_params, torch.Generator(device=dev).manual_seed(74))
         torch.cuda.synchronize()
@@ -463,9 +512,11 @@ def search_phase(dev, card):
         for k, v in got.items():
             path_launches[k] += v
         searchers = sum(k != "random" for k in roster)
-        want = {"deal_games": 1, "resolve_turn": mcfg.max_turns + searchers * playout_turns_per_seat(mcfg, mc_max)}
-        if got != want:
-            raise AssertionError(f"match {label} launched {got}, expected {want}")
+        want = {"deal_games": 1, "resolve_turn": mcfg.max_turns + searchers * playout_turns_per_seat(mcfg, mc_max),
+                "policy_mlp": match_policy(mcfg, roster, mc_max)}
+        if got != want or policy_mlp.FALLBACKS["policy_mlp"]:
+            raise AssertionError(f"match {label} launched {got}, expected {want}; "
+                                 f"{policy_mlp.FALLBACKS['policy_mlp']} policy forwards fell back")
         if scores.shape != (games, len(roster)) or not (torch.isfinite(scores).all() and (scores <= 0).all()):
             raise AssertionError(f"match {label}: scores of shape {tuple(scores.shape)} must be finite and <= 0")
         mean = scores.mean(dim=0).tolist()
@@ -522,15 +573,18 @@ def learner_rates(dev, card):
     from rl6nimmt_torch.agents.dqn import tree_leaves
     from rl6nimmt_torch.engine import EnvConfig
     from rl6nimmt_torch.experiments.trainable_bench import AcerArm, ReinforceArm, seconds_per_step
-    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.ops import _build, policy_mlp
 
     cfg = EnvConfig(4)
     arms = {"reinforce": ReinforceArm(cfg, G, dev), "acer": AcerArm(cfg, G, dev),
             "acer_packed": AcerArm(cfg, G, dev, packed=True)}
     start = {name: [x.clone() for x in tree_leaves(arm.params)] for name, arm in arms.items()}
-    want = {"deal_games": 1, "resolve_turn": cfg.max_turns}
+    # REINFORCE's policy forward launches policy_mlp once a turn; ACER's two heads run the plain ops.
+    wants = {name: nonzero({"deal_games": 1, "resolve_turn": cfg.max_turns,
+                            "policy_mlp": cfg.max_turns * (name == "reinforce")}) for name in arms}
     torch.cuda.synchronize()
     _build.reset_launches()
+    policy_mlp.FALLBACKS["policy_mlp"] = 0
     # ---- the learners' path: every counter starts at 0 here ----
     out, path = {}, {k: 0 for k in _build.LAUNCHES}
     for name, arm in arms.items():
@@ -542,8 +596,9 @@ def learner_rates(dev, card):
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
-            if got != want:
-                raise AssertionError(f"{name} step {i} launched {got}, expected {want}")
+            if got != wants[name] or policy_mlp.FALLBACKS["policy_mlp"]:
+                raise AssertionError(f"{name} step {i} launched {got}, expected {wants[name]}; "
+                                     f"{policy_mlp.FALLBACKS['policy_mlp']} policy forwards fell back")
             steps.append({"s": sec, **{k: float(v) for k, v in m.items()}})
         leaves = tree_leaves(arm.params)
         if not all(math.isfinite(v) for st in steps for v in st.values()) \
@@ -626,14 +681,57 @@ def host_search_turns(agent, n):
     return -(-n_mc // (agent.batch_playouts or n_mc)) * n
 
 
+# policy_mlp launches: every action-in-input policy forward on the kernel's
+# route (ops/policy_mlp.py) launches it once.  A device match's seats whose
+# root reads the net, and those whose playouts play the net's moves:
+NET_ROOT_KINDS = ("policy", "puct", "puct_uniform")
+NET_PLAYOUT_KINDS = ("policy", "puct")
+
+
+def match_policy(cfg, roster, mc_max, mc_per_card=10, batch=8):
+    """policy_mlp launches of one device match: each seat's decision launches it
+    once a turn for its root and once a playout turn, where each reads the net."""
+    from rl6nimmt_torch.runtime.device_match import playout_turns_per_seat
+
+    turns = playout_turns_per_seat(cfg, mc_max, mc_per_card, batch)
+    return sum(cfg.max_turns * (k in NET_ROOT_KINDS) + turns * (k in NET_PLAYOUT_KINDS) for k in roster)
+
+
+def host_search_policy(agent, n, games=1):
+    """policy_mlp launches of one host search call at ``n`` cards over ``games``
+    games (``mcs.py`` ``_mcts_many``): a root prior a game (one a call with
+    ``device_root``) where the root reads the net, and one a playout turn where
+    the playouts play the net's moves; a single card is played without one."""
+    if n == 1:
+        return 0
+    roots = (agent.root_strategy != "uniform") * (1 if agent.device_root else games)
+    return roots + (host_search_turns(agent, n) if agent.playout_policy == "net" else 0)
+
+
+def policy_learns(agent):
+    """Whether ``agent`` runs the policy forward once an episode to learn:
+    action-in-input REINFORCE and the searchers that imitate their own
+    choices, in training mode."""
+    from rl6nimmt_torch.agents import BatchedReinforceAgent, PolicyMCSAgent, PUCTCustomedAgent
+
+    return agent.training and (isinstance(agent, BatchedReinforceAgent)
+                               or isinstance(agent, PolicyMCSAgent) and not isinstance(agent, PUCTCustomedAgent))
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 def block_launches(session, cap):
     """A device block's launches and playout widths, rebuilt from its lineups:
     K2 once; K1 once a game turn and, every turn, ceil(n_mc / K) rounds of n
     playout turns for each search call -- one for the seats without a net
-    (random, MCS) and one for each PUCT agent, seats x K lanes wide.  K is the
-    session's, or, with no PUCT seat, the budgets' pow2 ceiling up to ``cap``
-    lanes a seat."""
-    from rl6nimmt_torch.agents import DrunkHamster, MCSAgent, PUCTAgent
+    (random, MCS) and one for each PUCT agent, seats x K lanes wide; policy_mlp
+    in each PUCT agent's call once a turn for its roots and once a playout
+    turn (as the net reads them), and once a turn for each action-in-input
+    REINFORCE learner.  K is the session's, or, with no PUCT seat, the budgets'
+    pow2 ceiling up to ``cap`` lanes a seat."""
+    from rl6nimmt_torch.agents import BatchedReinforceAgent, DrunkHamster, MCSAgent, PUCTAgent
 
     seats = [a for lineup in session.lineups for a in lineup]
     if any(isinstance(a, PUCTAgent) for a in seats):
@@ -646,20 +744,31 @@ def block_launches(session, cap):
         if isinstance(a, (DrunkHamster, MCSAgent, PUCTAgent)):
             calls.setdefault(id(a) if isinstance(a, PUCTAgent) else None, []).append(a)
     k1 = session.cfg.max_turns
+    policy = session.cfg.max_turns * len({id(a) for a in seats if isinstance(a, BatchedReinforceAgent)})
     for n in range(1, session.cfg.hand_size + 1):
-        for group in calls.values():
+        for key, group in calls.items():
             n_mc = max(min(a.mc_max, a.mc_per_card * math.factorial(n)) if hasattr(a, "mc_max") else 0
                        for a in group)
             k1 += -(-n_mc // K) * n
-    return {"deal_games": 1, "resolve_turn": k1}, {len(group) * K for group in calls.values()}
+            if key is not None:
+                policy += (group[0].root_strategy != "uniform") + (group[0].playout_policy == "net") * -(-n_mc // K) * n
+    return nonzero({"deal_games": 1, "resolve_turn": k1, "policy_mlp": policy}), {len(group) * K
+                                                                                  for group in calls.values()}
+
+
+def block_learns(session):
+    """policy_mlp launches of a device block's learn replay: one a game for each
+    seat whose agent learns through the policy forward (:func:`policy_learns`)."""
+    return sum(policy_learns(a) for lineup in session.lineups for a in lineup)
 
 
 def device_block(t, b, sessions, shapes, device_learning):
     """One ``play_device_block(TOURNAMENT_BLOCK)`` of ``t`` with each group's
     launches asserted (``sessions`` collects the dispatched groups and their
-    launches) and the whole call launching nothing more (the learn replay, on
-    the host or the device, launches no K1/K2); every learner that took an Adam
-    step moved.  With ``device_learning`` every planner's replay runs under
+    launches) and the whole call launching nothing more but the learn replay's
+    policy_mlp, one an episode of each learner that learns through the policy
+    net (the replay, on the host or the device, launches no K1/K2); every
+    learner that took an Adam step moved.  With ``device_learning`` every planner's replay runs under
     ``torch.cuda.set_sync_debug_mode("error")``: it must not wait for the card.
     Returns the block's record and its groups."""
     from rl6nimmt_torch.agents.dqn import tree_leaves
@@ -739,8 +848,10 @@ def device_block(t, b, sessions, shapes, device_learning):
                        "launches": got, **session.timings})
     if sum(g["games"] for g in groups) != TOURNAMENT_BLOCK:
         raise AssertionError(f"block {b}: its device groups played {[g['games'] for g in groups]} games")
-    if whole != total:
-        raise AssertionError(f"block {b}: the call launched {whole}, its groups' play {total}")
+    learns = sum(block_learns(session) for session, _ in sessions[first_session:])
+    if whole != nonzero({**total, "policy_mlp": total.get("policy_mlp", 0) + learns}):
+        raise AssertionError(f"block {b}: the call launched {whole}, its groups' play {total} and the learn "
+                             f"replay's policy forwards {learns}")
     moved = {}
     for n, (count, start) in learners.items():
         agent = t.players[n].agent
@@ -860,8 +971,12 @@ def tournament_phase(dev, card):
             t.play_game()
             got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
             names = games[-1][0]
-            want = {"deal_games": 1, "resolve_turn": 10 + sum(host_search_turns(a, n) for a in searchers(names)
-                                                              for n in range(1, 11))}
+            want = nonzero({"deal_games": 1,
+                            "resolve_turn": 10 + sum(host_search_turns(a, n) for a in searchers(names)
+                                                     for n in range(1, 11)),
+                            "policy_mlp": sum(host_search_policy(a, n) for a in searchers(names)
+                                              for n in range(1, 11))
+                            + sum(policy_learns(t.players[n].agent) for n in names)})
             if got != want:
                 raise AssertionError(f"play_game {names} launched {got}, expected {want}")
         before, first = dict(_build.LAUNCHES), len(games)
@@ -871,10 +986,14 @@ def tournament_phase(dev, card):
         counts = {}   # (agent, players): the block's search calls group games by player count
         for names in block_games:
             for a in searchers(names):
-                counts[(id(a), len(names))] = a
-        want = {"deal_games": HOST_TOURNAMENT_BLOCK,
-                "resolve_turn": 10 * HOST_TOURNAMENT_BLOCK + sum(host_search_turns(a, n) for a in counts.values()
-                                                                 for n in range(1, 11))}
+                counts.setdefault((id(a), len(names)), [a, 0])[1] += 1
+        want = nonzero({"deal_games": HOST_TOURNAMENT_BLOCK,
+                        "resolve_turn": 10 * HOST_TOURNAMENT_BLOCK + sum(host_search_turns(a, n)
+                                                                         for a, _ in counts.values()
+                                                                         for n in range(1, 11)),
+                        "policy_mlp": sum(host_search_policy(a, n, games) for a, games in counts.values()
+                                          for n in range(1, 11))
+                        + sum(policy_learns(t.players[n].agent) for names in block_games for n in names)})
         if got != want:
             raise AssertionError(f"play_block {block_games} launched {got}, expected {want}")
         torch.cuda.synchronize()
@@ -994,19 +1113,21 @@ def tournament_phase(dev, card):
 def arena_phase(dev, card):
     """Phase 10, the arena (``runtime/arena.py``): with every launch counter at
     0 just before each, ``play_match`` of the four-seat and the two-seat lineup
-    at ARENA_G games, each required to launch K2 once and K1 ten times and
-    nothing else, every game's penalties <= 0; then its games/s (the median of
+    at ARENA_G games, each required to launch K2 once, K1 ten times,
+    policy_mlp ten times for the REINFORCE seat and nothing else (each ACER
+    seat's two heads fall back to the plain ops ten times), every game's
+    penalties <= 0; then its games/s (the median of
     ARENA_REPS more matches); the four-seat match on the card and on the CPU on
     one injected noise, with equal scores; K1 and K2 against their twins at the
     arena's shapes.  Returns the ``arena`` line, the path's launches and the
     twin errors."""
     import numpy as np
 
-    from rl6nimmt_torch.agents import BatchedReinforceAgent, D3QN_PRB_NStep
+    from rl6nimmt_torch.agents import BatchedACERAgent, BatchedReinforceAgent, D3QN_PRB_NStep
     from rl6nimmt_torch.agents.dqn import eps_func_decay
     from rl6nimmt_torch.engine import EnvConfig
     from rl6nimmt_torch.experiments.simple_tournament import population
-    from rl6nimmt_torch.ops import _build
+    from rl6nimmt_torch.ops import _build, policy_mlp
     from rl6nimmt_torch.runtime import play_match, seat_policy_of
     from rl6nimmt_torch.runtime.arena import ArenaNoise, draw_seat
 
@@ -1021,11 +1142,16 @@ def arena_phase(dev, card):
     for name, agents in lineups.items():
         torch.cuda.synchronize()
         _build.reset_launches()
+        policy_mlp.FALLBACKS["policy_mlp"] = 0
         scores = play_match(agents, ARENA_G, seed=94, device=dev)
         torch.cuda.synchronize()
         got = {k: v for k, v in _build.LAUNCHES.items() if v}
-        if got != {"deal_games": 1, "resolve_turn": 10}:
-            raise AssertionError(f"arena {name}: launched {got}, expected K2 once and K1 ten times")
+        want = nonzero({"deal_games": 1, "resolve_turn": 10,
+                        "policy_mlp": 10 * sum(isinstance(a, BatchedReinforceAgent) for a in agents)})
+        fell_back = 10 * sum(isinstance(a, BatchedACERAgent) for a in agents)
+        if got != want or policy_mlp.FALLBACKS["policy_mlp"] != fell_back:
+            raise AssertionError(f"arena {name}: launched {got}, expected {want}; "
+                                 f"{policy_mlp.FALLBACKS['policy_mlp']} policy forwards fell back, not {fell_back}")
         for k, v in got.items():
             path[k] = path.get(k, 0) + v
         if scores.shape != (ARENA_G, len(agents)) or not (scores <= 0).all() or not (scores.sum(1) < 0).all():
@@ -1347,8 +1473,8 @@ def scripts_phase(dev, card):
     """Phase 12: the ``main()`` of each experiment script ported with the replay
     layouts, on the card at a cut depth (each cut stated in the log), with its
     checks; every counter is set to 0 just before each script and read just
-    after, and held to the script's exact K1/K2/K4/K5 launches.  Returns the
-    ``scripts`` line and the launches summed over the scripts."""
+    after, and held to the script's exact K1/K2/K4/K5 and policy_mlp launches.
+    Returns the ``scripts`` line and the launches summed over the scripts."""
     import builtins
     import contextlib
     import io
@@ -1364,9 +1490,11 @@ def scripts_phase(dev, card):
     line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
     cfg4, cfg2 = EnvConfig(4), EnvConfig(2)
     T = cfg4.max_turns
-    match = lambda k2, k1: {"deal_games": k2, "resolve_turn": k1}      # K2 once and K1 ten times a plain match
+    # K2 once and K1 ten times a plain match; policy_mlp as the seats' nets run
+    match = lambda k2, k1, policy=0: {"deal_games": k2, "resolve_turn": k1, "policy_mlp": policy}
 
     def run(name, cut, argv, want, main):
+        want = nonzero(want)
         torch.cuda.synchronize()
         _build.reset_launches()
         out = io.StringIO()
@@ -1410,20 +1538,25 @@ def scripts_phase(dev, card):
         if not all(-10 * 104 <= res[a]["score_mean"] <= 0 for a in fm_strength_ab.ARMS) or not os.path.exists(out_path):
             raise AssertionError(f"fm_strength_ab: scores {[res[a]['score_mean'] for a in fm_strength_ab.ARMS]}")
         line["fm_strength_ab"]["scores"] = {a: res[a]["score_mean"] for a in fm_strength_ab.ARMS}
-        # train_puct_prior: 2 device blocks of 64 all-PUCT games (one search call a turn), then two
-        # 16-game two-seat matches (two searchers each).
+        # train_puct_prior: 2 device blocks of 64 all-PUCT games (one search call a turn: its roots and
+        # playout turns run the net) and an update each (one forward), then two 16-game two-seat matches
+        # (two searchers each).
         ptps4, ptps2 = playout_turns_per_seat(cfg4, 128), playout_turns_per_seat(cfg2, 128)
         prior_path = os.path.join(tmp, "prior.npz")
         res, _ = run("train_puct_prior", "2 iterations, not 100; a 32-game head-to-head at mc_max 128",
                      ["--iters", "2", "--games", "64", "--mc-max", "128", "--eval-games", "32", "--eval-mc-max",
                       "128", "--out", prior_path],
-                     match(4, 2 * (T + ptps4) + 2 * (T + 2 * ptps2)), train_puct_prior.main)
+                     match(4, 2 * (T + ptps4) + 2 * (T + 2 * ptps2),
+                           2 * (T + ptps4 + 1) + 2 * match_policy(cfg2, ("puct", "puct"), 128)),
+                     train_puct_prior.main)
         if not (0 <= res["win_rate"] <= 1 and all(math.isfinite(x) for x, _ in res["history"])
                 and os.path.exists(prior_path)):
             raise AssertionError(f"train_puct_prior: win rate {res['win_rate']}, history {res['history']}")
         line["train_puct_prior"].update(win_rate=res["win_rate"], history=res["history"])
-        # long_train_eval: REINFORCE 2 updates and evals before and after; DQN 2 cycles, 3 evals.
-        for algo, flags, want in (("reinforce", ["--updates", "2", "--eval-every", "2"], match(2 + 2, 10 * 4)),
+        # long_train_eval: REINFORCE 2 updates and evals before and after (the policy net once a turn of
+        # each); DQN 2 cycles, 3 evals.
+        for algo, flags, want in (("reinforce", ["--updates", "2", "--eval-every", "2"],
+                                   match(2 + 2, 10 * 4, 10 * 4)),
                                   ("dqn", ["--cycles", "2"], match(2 + 3, 10 * 5))):
             hist, _ = run(f"long_train_eval_{algo}", "a few updates, evals of 1,024 games",
                           ["--algo", algo, *flags, "--games", str(G), "--eval-games", "1024",
@@ -1432,11 +1565,13 @@ def scripts_phase(dev, card):
                 raise AssertionError(f"long_train_eval {algo}: history {hist}")
             line[f"long_train_eval_{algo}"]["win_rates"] = [h["win_rate"] for h in hist]
         # strength_vs_budget: two host GameSession games; a wrapper reset is K2, a turn K1, and
-        # each host search call ceil(n_mc / batch) rounds of n playout turns.
+        # each host search call ceil(n_mc / batch) rounds of n playout turns (and its root's and
+        # playout turns' policy forwards); the agents do not learn.
         big, small = PUCTAgent(mc_max=32, device="cpu"), PUCTAgent(mc_max=16, device="cpu")
         searches = sum(host_search_turns(a, n) for a in (big, small) for n in range(1, cfg2.hand_size + 1))
+        nets = sum(host_search_policy(a, n) for a in (big, small) for n in range(1, cfg2.hand_size + 1))
         res, _ = run("strength_vs_budget", "2 games at mc_max 32 against 16, not 100 at 800 against 400",
-                     ["--games", "2", "--big", "32", "--small", "16"], match(2, 2 * (T + searches)),
+                     ["--games", "2", "--big", "32", "--small", "16"], match(2, 2 * (T + searches), 2 * nets),
                      strength_vs_budget.main)
         line["strength_vs_budget"]["result"] = res
         # play_human --device-game: a scripted human (the first held card) against one PUCT seat.
@@ -1446,7 +1581,8 @@ def scripts_phase(dev, card):
         try:
             totals, printed = run("play_human", "1 game at mc_max 32, not 5 at 800, scripted human",
                                   ["--device-game", "--games", "1", "--mc-max", "32", "--name", "Scripted"],
-                                  match(1, T + playout_turns_per_seat(cfg2, 32)), play_human.main)
+                                  match(1, T + playout_turns_per_seat(cfg2, 32), match_policy(cfg2, ("puct",), 32)),
+                                  play_human.main)
         finally:
             builtins.input = real_input
         if len(prompts) != T or "Series total: Scripted" not in printed or not (totals <= 0).all():
@@ -1460,10 +1596,11 @@ def evals_phase(dev, card):
     """Phase 13: the ``main()`` of each evaluation, A/B and profiling script's
     twin on the card at a cut depth, the widths the published ones (each cut
     stated in the log), with its checks; every counter is set to 0 just before
-    each script and read just after, and held to the script's exact K1/K2
-    launches: a device block group's from its lineups (``block_launches``), a
-    match's from its seats' budgets (``playout_turns_per_seat``), a host game's
-    from its searches (``host_search_turns``).  Last, K1 and K2 against their
+    each script and read just after, and held to the script's exact K1/K2 and
+    policy_mlp launches: a device block group's from its lineups
+    (``block_launches``, ``block_learns``), a match's from its seats' budgets
+    (``playout_turns_per_seat``, ``match_policy``), a host game's from its
+    searches (``host_search_turns``, ``host_search_policy``).  Last, K1 and K2 against their
     twins at every shape the scripts launched them at.  Returns the ``evals``
     line, the launches summed over the scripts and the largest K1/K2
     differences from their twins."""
@@ -1483,7 +1620,7 @@ def evals_phase(dev, card):
     line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
     cfg4, cfg2 = EnvConfig(4), EnvConfig(2)
     T = cfg4.max_turns
-    match = lambda k2, k1: {"deal_games": k2, "resolve_turn": k1}
+    match = lambda k2, k1, policy=0: {"deal_games": k2, "resolve_turn": k1, "policy_mlp": policy}
     in_unit = lambda *xs: all(0.0 <= x <= 1.0 for x in xs)
     in_scores = lambda *xs: all(-10 * 104 <= x <= 0 for x in xs)
     # Every device block session a script dispatches, for its groups' launches.
@@ -1509,10 +1646,11 @@ def evals_phase(dev, card):
                                                        a[-6]))
 
     def blocks_launches():
-        got = {"deal_games": 0, "resolve_turn": 0}
+        got = {"deal_games": 0, "resolve_turn": 0, "policy_mlp": 0}
         for s in sessions:
             for k, v in block_launches(s, s.single_round_cap)[0].items():
                 got[k] += v
+            got["policy_mlp"] += block_learns(s)
         return got
 
     def run(name, cut, argv, want, main):
@@ -1542,9 +1680,10 @@ def evals_phase(dev, card):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             # device_learn_strength_ab: per family two arms of 2 blocks of 8 games, then 2 arena matches
-            # against random seats and 2 head-to-head (K2 once and K1 ten times a match).
+            # against random seats and 2 head-to-head (K2 once and K1 ten times a match; policy_mlp ten
+            # times a match for each REINFORCE seat).
             fams = device_learn_strength_ab.FAMILIES
-            arena = match(4 * len(fams), 4 * len(fams) * T)
+            arena = match(4 * len(fams), 4 * len(fams) * T, (2 + 2 * 2) * T * ("reinforce" in fams))
             res = run("device_learn_strength_ab", "1 seed, 16 games in blocks of 8, 1,024 eval games (not 6 seeds, "
                       "240 games, 4,096)", ["--seeds", "1", "--games", "16", "--block", "8", "--eval-games", "1024",
                                             "--out", os.path.join(tmp, "dls.json")],
@@ -1576,28 +1715,36 @@ def evals_phase(dev, card):
                 raise AssertionError(f"profile_devblock: {res}")
             line["profile_devblock"]["result"] = res
             # budget_saturation: per budget two blocks (one a seat order); each turn one search call over
-            # both seats, as many rounds as the reference seat needs.
+            # both seats, as many rounds as the reference seat needs, its roots and playouts on the net.
             res = run("budget_saturation", "budgets 8 and 16 against 32, 32 games a seat order (not 7 budgets "
                       "against 800, 512)", ["--budgets", "8,16", "--reference-budget", "32", "--games", "32",
                                            "--out", os.path.join(tmp, "bs.json")],
-                      match(4, 4 * (T + playout_turns_per_seat(cfg2, 32))), budget_saturation.main)
+                      match(4, 4 * (T + playout_turns_per_seat(cfg2, 32)), 4 * (T + playout_turns_per_seat(cfg2, 32))),
+                      budget_saturation.main)
             if not all(in_unit(v["win_rate_vs_saturated"]) and v["games"] == 64 for v in res.values()):
                 raise AssertionError(f"budget_saturation: {res}")
             line["budget_saturation"]["result"] = res
-            # devblock_attrib: 7 arms, one untimed and one timed block each, one search call a turn.
+            # devblock_attrib: 7 arms, one untimed and one timed block each, one search call a turn; the
+            # net reads the roots of puct_uniform and puct and the playouts of puct.
             arm_k = {"random": None, "mcs": 8, "puct_uniform": 8, "puct": 8, "mcs/puct_free": 32,
                      "mcs/pf+uni": 32, "puct/K32": 32}
+            roots, net_playouts = ("puct_uniform", "puct", "puct/K32"), ("puct", "puct/K32")
             res = run("devblock_attrib", "32 games at mc_max 32, 1 rep (not 200, 3)",
                       ["--games", "32", "--mc-max", "32", "--reps", "1"],
                       match(2 * len(arm_k), sum(2 * (T + (playout_turns_per_seat(cfg4, 32, 10, k) if k else 0))
-                                                for k in arm_k.values())), devblock_attrib.main)
+                                                for k in arm_k.values()),
+                            sum(2 * (T * (a in roots) + (playout_turns_per_seat(cfg4, 32, 10, k) if a in net_playouts
+                                                         else 0)) for a, k in arm_k.items())), devblock_attrib.main)
             if list(res) != list(arm_k) or not all(v["min_ms"] > 0 for v in res.values()):
                 raise AssertionError(f"devblock_attrib: {res}")
             line["devblock_attrib"]["result"] = res
             # prior_decoupled_eval: 4 matchups of 2 two-seat matches, both seats searching.
+            rosters = (("puct", "puct"), ("puct_uniform", "puct_uniform"), ("puct_uniform", "puct"),
+                       ("puct_uniform", "puct"))
             res = run("prior_decoupled_eval", "32 games a seat order at budget 16 (not 512 at 50, 100)",
-                      ["--games", "32", "--budgets", "16"], match(8, 8 * (T + 2 * playout_turns_per_seat(cfg2, 16))),
-                      prior_decoupled_eval.main)
+                      ["--games", "32", "--budgets", "16"],
+                      match(8, 8 * (T + 2 * playout_turns_per_seat(cfg2, 16)),
+                            sum(2 * match_policy(cfg2, r, 16) for r in rosters)), prior_decoupled_eval.main)
             if list(res) != ["A@16", "B@16", "C@16", "D@16"] or not all(in_unit(v["win_rate_A"]) for v in res.values()):
                 raise AssertionError(f"prior_decoupled_eval: {res}")
             line["prior_decoupled_eval"]["result"] = res
@@ -1608,7 +1755,8 @@ def evals_phase(dev, card):
                 res = run("puct_batch_ab", "32 games, 2 keys, K 8 and 16 at mc_max 32 (not 256, 4, 8/16/32 at 200)",
                           ["--games", "32", "--keys", "2", "--ks", "8,16", "--mc-max", "32",
                            "--out", os.path.join(tmp, "pb.json")],
-                          match(4, sum(2 * (T + 3 * playout_turns_per_seat(cfg4, 32, 10, k)) for k in (8, 16))),
+                          match(4, sum(2 * (T + 3 * playout_turns_per_seat(cfg4, 32, 10, k)) for k in (8, 16)),
+                                sum(2 * match_policy(cfg4, puct_batch_ab.ROSTER, 32, 10, k) for k in (8, 16))),
                           puct_batch_ab.main)
             finally:
                 device_match.deal = real_deal
@@ -1620,12 +1768,14 @@ def evals_phase(dev, card):
                 raise AssertionError(f"puct_batch_ab: {res}")
             line["puct_batch_ab"].update(result=res, arms_dealt_alike=same)
             # devroot_equivalence: 2 host games a searcher; a wrapper reset is K2, a turn K1, and each
-            # decision ceil(n_mc / K) rounds of n playout turns, device root and host root alike.
+            # decision ceil(n_mc / K) rounds of n playout turns, device root and host root alike, and
+            # PUCT's root and playout turns a policy forward each; the agents do not learn.
             for agent, cls in (("puct", PUCTAgent), ("mcs", MCSAgent)):
                 a = cls(mc_max=16, device="cpu")
                 searches = 2 * sum(host_search_turns(a, n) for n in range(1, cfg2.hand_size + 1))
+                nets = 2 * sum(host_search_policy(a, n) for n in range(1, cfg2.hand_size + 1))
                 res = run(f"devroot_equivalence_{agent}", "2 games at mc_max 16 (not 200 at 200)",
-                          ["--agent", agent, "--games", "2", "--mc-max", "16"], match(2, 2 * (T + searches)),
+                          ["--agent", agent, "--games", "2", "--mc-max", "16"], match(2, 2 * (T + searches), 2 * nets),
                           devroot_equivalence.main)
                 if not (in_unit(res["device_root_win_rate"]) and in_scores(res["mean_score_device"],
                                                                            res["mean_score_host"])):
@@ -1802,7 +1952,7 @@ def profilers_phase(dev, card):
     script's twin on the card at the published widths and a cut depth (each cut
     stated in the log), with its checks; every counter is set to 0 just before
     each script and read just after, and held to the script's exact K1/K2/K4/K4
-    fm launches.  Then the bf16 forwards and gradient against the CPU's, and K1,
+    fm and policy_mlp launches.  Then the bf16 forwards and gradient against the CPU's, and K1,
     K2, K4 and K4 fm against their twins at every shape the scripts launched
     them at.  Returns the ``profilers`` line, the launches summed over the
     scripts and the largest differences of each kernel from its twin."""
@@ -1959,7 +2109,11 @@ def profilers_phase(dev, card):
 
             def ab_units(r):
                 sub = r["acer"]["equal_wall_cycle_counts"]["subsampled"]
-                return units(seeds * 2 * 2 + 2 * 6 + seeds * (2 + sub) + 2 * seeds * 4)
+                # REINFORCE's policy forwards, per seed: 2 steps of the default arm (its no-grad rollout's
+                # ten turns and one forward over the trajectory) and 2 of the fused one (ten turns), one
+                # seat in each arm's match against random seats and two in each of the 2 head-to-head.
+                return {**units(seeds * 2 * 2 + 2 * 6 + seeds * (2 + sub) + 2 * seeds * 4),
+                        "policy_mlp": seeds * (2 * (T + 1) + 2 * T + 2 * T + 2 * 2 * T)}
 
             res = run("profile_ab", f"{seeds} seeds, 2 cycles an arm, 1,024 eval games (not 8, 400 and 120, 4,096)",
                       ["--seeds", str(seeds), "--cycles", "2", "--acer-cycles", "2", "--curve-every", "1",
@@ -1979,7 +2133,9 @@ def profilers_phase(dev, card):
                 line[name]["results"] = [r.tolist() for r in res]
             puct = PUCTAgent(mc_max=32, mc_per_card=4, batch_playouts=8, device="cpu")
             searches = sum(host_search_turns(puct, n) for n in range(1, cfg2.hand_size + 1))
-            res = run("debug_mcts", "full", [], {"deal_games": 1, "resolve_turn": T + searches}, debug_mcts.main)
+            nets = sum(host_search_policy(puct, n) for n in range(1, cfg2.hand_size + 1)) + 1   # and its learn
+            res = run("debug_mcts", "full", [], {"deal_games": 1, "resolve_turn": T + searches, "policy_mlp": nets},
+                      debug_mcts.main)
             if len(res) != 1 or not (res[0] <= 0).all():
                 raise AssertionError(f"debug_mcts: {res}")
             line["debug_mcts"]["results"] = [r.tolist() for r in res]
@@ -2050,7 +2206,8 @@ def scaling_phase(dev, card):
     cfg = EnvConfig(4)
     line, path = {"card": card}, {k: 0 for k in _build.LAUNCHES}
     jax_keys = {"devices", "ms_per_update", "games_per_s", "efficiency"}
-    per_rank = {"deal_games": SCALING_STEPS + 1, "resolve_turn": cfg.max_turns * (SCALING_STEPS + 1)}
+    per_rank = {"deal_games": SCALING_STEPS + 1, "resolve_turn": cfg.max_turns * (SCALING_STEPS + 1),
+                "policy_mlp": cfg.max_turns * (SCALING_STEPS + 1)}
     for name, argv in SCALING_RUNS:
         t0 = time.perf_counter()
         printed = io.StringIO()
@@ -2118,6 +2275,7 @@ def main():
                                                        make_act_rollout_kernel)
     from rl6nimmt_torch.ops.game_kernel import (deal_games, deal_games_plain, play_random_games,
                                                 play_random_games_plain)
+    from rl6nimmt_torch.ops.policy_mlp import policy_logits, policy_mlp_plain
     from rl6nimmt_torch.ops.step_kernel import (resolve_turn, resolve_turn_plain, resolve_turn_t,
                                                 resolve_turn_t_plain)
     from rl6nimmt_torch.runtime.vector import (draw_cycle_randomness, dqn_replay_example,
@@ -2141,11 +2299,12 @@ def main():
     # K1's four instances (two layouts, flagship and runtime sizes), K2's, K3's,
     # K6 env's and obs's two each (flagship and runtime sizes) and K7's k7:
     # nothing in local memory.
-    lean_ptxas = {k: ptxas.get(k, "missing") for k in K1_INSTANCES + K2_K3_INSTANCES + K6_K7_INSTANCES}
+    lean_ptxas = {k: ptxas.get(k, "missing")
+                  for k in K1_INSTANCES + K2_K3_INSTANCES + K6_K7_INSTANCES + POLICY_INSTANCES}
     if any(not all(re.search(rf"(?<![\d.]){z}", v) for z in ("0 bytes stack frame", "0 bytes spill stores",
                                                               "0 bytes spill loads"))
            for v in lean_ptxas.values()):
-        raise AssertionError(f"K1, K2, K3, K6 env/obs and K7 k7 instances must use no stack and no spills: "
+        raise AssertionError(f"K1, K2, K3, K6 env/obs, K7 k7 and policy_mlp instances must use no stack and no spills: "
                              f"{lean_ptxas}")
     if "act_rollout_fm_kernel" not in ptxas:
         raise AssertionError("the build holds no ptxas line of K4's feature-major entry act_rollout_fm_kernel")
@@ -2372,6 +2531,13 @@ def main():
     k5_planes = (torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
                  torch.zeros((S_PAD, KD_CAPACITY), dtype=torch.int8, device=dev),
                  torch.zeros((SCAL_ROWS, KD_CAPACITY), dtype=torch.float32, device=dev))
+    # policy_mlp against its twin at the train step's turn 0 and the REINFORCE evaluation's seat.
+    pm_train = policy_inputs(dev, POLICY_TRAIN_ROWS, H, 86)
+    errs["policy_mlp"] = max(policy_against_twin(*pm_train),
+                             policy_against_twin(*policy_inputs(dev, POLICY_EVAL_ROWS, H, 87, live="random")))
+    log(f"[8] policy_mlp == twin within 1e-5 of each row's scale at ({POLICY_TRAIN_ROWS}, {H}) all live and "
+        f"({POLICY_EVAL_ROWS}, {H}) with 0-{H} live, NEG_INF exactly on the padded slots; max |gap| "
+        f"{errs['policy_mlp']:.3g}")
     timing = {
         "resolve_turn": (lambda: resolve_turn(cfg, k1_b, k1_l, k1_a),
                          lambda: resolve_turn_plain(cfg, k1_b, k1_l, k1_a), 200, 20),
@@ -2387,6 +2553,8 @@ def main():
                            lambda: act_rollout_fm_plain(cfg, 7, G, *k4_args), 20, 3),
         "act_insert": (lambda: insert(7, KD_PTR, *k4_args, *k5_planes),
                        lambda: act_insert_plain(cfg, 7, G, *k4_args, KD_PTR, *k5_planes, 0.99, dqn.n_steps), 20, 3),
+        "policy_mlp": (lambda: policy_logits(*pm_train[:2], *pm_train[2], 103.0),
+                       lambda: policy_mlp_plain(*pm_train[:2], *pm_train[2], 103.0), 20, 3),
     }
     # Bytes each kernel must move (inputs read once, outputs written once) and
     # the operations these inputs need.
@@ -2402,10 +2570,14 @@ def main():
     k4_flops = G * sum((S - H) * HIDDEN * 2 + P * H * HIDDEN * 2 + P * (H - t) * HIDDEN * 2 for t in range(turns))
     # K5: the same play, then every transition's column of the three planes and the rewards out.
     k5_bytes = weight_bytes + turns * P * G * (2 * S_PAD + 4 * SCAL_ROWS) + 4 * turns * P * G
+    # policy_mlp: the state products, cards and logits once; 2 D^2 + 7 D FLOPs a live row.
+    pm_bytes = 4 * POLICY_TRAIN_ROWS * (POLICY_D + 2 * H)
+    pm_flops = POLICY_TRAIN_ROWS * H * (2 * POLICY_D * POLICY_D + 7 * POLICY_D)
     work = {"resolve_turn": (k1_bytes, k1_ops), "resolve_turn_t": (k1_bytes, k1_ops),
             "deal_games": (k2_bytes, k2_ops),
             "play_random_games": (k3_bytes, k3_ops), "act_rollout": (k4_bytes, k4_flops),
-            "act_rollout_fm": (k4_bytes, k4_flops), "act_insert": (k5_bytes, k4_flops)}
+            "act_rollout_fm": (k4_bytes, k4_flops), "act_insert": (k5_bytes, k4_flops),
+            "policy_mlp": (pm_bytes, pm_flops)}
     meta = {
         "resolve_turn": ("rl6nimmt_torch/csrc/step_kernel.cu", "rl6nimmt_tpu/ops/step_kernel.py:147",
                          f"board i32[{G},{R},{T}], row_len i32[{G},{R}], actions i32[{G},{P}]"),
@@ -2423,6 +2595,10 @@ def main():
         "act_insert": ("rl6nimmt_torch/csrc/act_insert_kernel.cu", "rl6nimmt_tpu/ops/act_rollout_kernel.py:351",
                        f"K4's weights, ptr {KD_PTR} -> planes i8[{S_PAD},{KD_CAPACITY}] x2, "
                        f"f32[{SCAL_ROWS},{KD_CAPACITY}] in place, rewards i32[{turns * P},{G}]"),
+        # No pallas_call: it ports the jnp action-in-input forward past the state product.
+        "policy_mlp": ("rl6nimmt_torch/csrc/policy_mlp.cu", "rl6nimmt_tpu/agents/reinforce.py:54",
+                       f"shared f32[{POLICY_TRAIN_ROWS},{POLICY_D}], cards i32[{POLICY_TRAIN_ROWS},{H}] "
+                       f"-> logits f32[{POLICY_TRAIN_ROWS},{H}]"),
     }
     # The kernel each wrapper launches, as its profiler events name it.
     kernel_of = {"resolve_turn": "resolve_turn_kernel", "resolve_turn_t": "resolve_turn_kernel",
@@ -2466,6 +2642,8 @@ def main():
         if row["name"] in wide:
             row.update(ptxas=ptxas[f"{row['name']}_kernel<{K2_K3_FLAGSHIP}>"], games_per_block=k23_games,
                        blocks=-(-G // k23_games), threads=k23_threads)
+        if row["name"] == "policy_mlp":
+            row.update(ptxas=ptxas["policy_mlp_kernel"], threads=224, rows_per_tile=128)
 
     for mode, cycle in cycles.items():
         p, tgt, o, buf = train_state[mode]
@@ -2586,8 +2764,9 @@ def main():
     # ------------------------------------------------------------ phase 7
     search_line, search_launches, twin_errs = search_phase(dev, card)
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games"):
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
             row["search_path_launches"] = search_launches[row["name"]]
+        if row["name"] in ("resolve_turn", "deal_games"):
             row["max_abs_err"] = max(row["max_abs_err"], twin_errs[row["name"]])
     print(json.dumps(search_line), flush=True)
 
@@ -2595,8 +2774,9 @@ def main():
     checks, learner_twin_errs = learner_checks(dev)
     learner_line.update(checks)
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games"):
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
             row["learner_path_launches"] = learner_launches[row["name"]]
+        if row["name"] in ("resolve_turn", "deal_games"):
             row["max_abs_err"] = max(row["max_abs_err"], learner_twin_errs[row["name"]])
     for name in ("reinforce", "acer"):
         traced = profile_call(learner_arms[name].step, f"{name}_step_G{G}")
@@ -2610,8 +2790,9 @@ def main():
     tournament_line, tournament_launches, tournament_errs = tournament_phase(dev, card)
     tournament_line["phase_s"] = time.perf_counter() - t0
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games"):
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
             row["tournament_path_launches"] = tournament_launches[row["name"]]
+        if row["name"] in ("resolve_turn", "deal_games"):
             row["max_abs_err"] = max(row["max_abs_err"], tournament_errs[row["name"]])
     missing = [k for k in ("resolve_turn", "deal_games") if not tournament_launches[k]]
     if missing:
@@ -2623,8 +2804,9 @@ def main():
     arena_line, arena_launches, arena_errs = arena_phase(dev, card)
     arena_line["phase_s"] = time.perf_counter() - t0
     for row in rows:
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
+            row["arena_path_launches"] = arena_launches.get(row["name"], 0)
         if row["name"] in ("resolve_turn", "deal_games"):
-            row["arena_path_launches"] = arena_launches[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], arena_errs[row["name"]])
     print(json.dumps({"arena": arena_line}), flush=True)
 
@@ -2633,7 +2815,7 @@ def main():
     dp_line, dp_launches, dp_errs = dp_phase(dev, card, k4_args)
     dp_line["phase_s"] = time.perf_counter() - t0
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert"):
+        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert", "policy_mlp"):
             row["dp_path_launches"] = dp_launches[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], dp_errs.get(row["name"], 0.0))
     missing = [k for k in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert")
@@ -2648,7 +2830,7 @@ def main():
     scripts_line["phase_s"] = time.perf_counter() - t0
     log(f"[12] the experiment scripts took {scripts_line['phase_s']:.1f} s")
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert"):
+        if row["name"] in ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm", "act_insert", "policy_mlp"):
             row["scripts_path_launches"] = scripts_launches[row["name"]]
     print(json.dumps({"scripts": scripts_line}), flush=True)
 
@@ -2658,8 +2840,9 @@ def main():
     evals_line["phase_s"] = time.perf_counter() - t0
     log(f"[13] the evaluation scripts took {evals_line['phase_s']:.1f} s")
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games"):
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
             row["evals_path_launches"] = evals_launches[row["name"]]
+        if row["name"] in ("resolve_turn", "deal_games"):
             row["max_abs_err"] = max(row["max_abs_err"], evals_errs[row["name"]])
     missing = [k for k in ("resolve_turn", "deal_games") if not evals_launches[k]]
     if missing:
@@ -2673,8 +2856,9 @@ def main():
     log(f"[14] the profilers, micro-benchmarks and debug scripts took {profilers_line['phase_s']:.1f} s")
     path14 = ("resolve_turn", "deal_games", "act_rollout", "act_rollout_fm")
     for row in rows:
-        if row["name"] in path14:
+        if row["name"] in path14 + ("policy_mlp",):
             row["profilers_path_launches"] = profilers_launches[row["name"]]
+        if row["name"] in path14:
             row["max_abs_err"] = max(row["max_abs_err"], profilers_errs[row["name"]])
     missing = [k for k in path14 if not profilers_launches[k]]
     if missing:
@@ -2687,8 +2871,9 @@ def main():
     scaling_line["phase_s"] = time.perf_counter() - t0
     log(f"[15] the weak-scaling bench took {scaling_line['phase_s']:.1f} s")
     for row in rows:
-        if row["name"] in ("resolve_turn", "deal_games"):
+        if row["name"] in ("resolve_turn", "deal_games", "policy_mlp"):
             row["scaling_path_launches"] = scaling_launches[row["name"]]
+        if row["name"] in ("resolve_turn", "deal_games"):
             row["max_abs_err"] = max(row["max_abs_err"], scaling_errs[row["name"]])
     missing = [k for k in ("resolve_turn", "deal_games") if not scaling_launches[k]]
     if missing:

@@ -29,6 +29,7 @@ import torch
 
 from ..nets import MLPSpec, linear_apply, mlp_apply, mlp_init, normalize_state
 from ..nets.mlp import _activation, _mm
+from ..ops import policy_mlp
 from ..utils.ops import onehot_select
 from ..utils.returns import discounted_returns
 from ..utils.spans import span
@@ -50,10 +51,23 @@ def action_in_input_logits(spec: MLPSpec, params, state, legal_cards):
 
     ``state`` is ``f32[..., S]`` and ``legal_cards`` ``int[..., H]`` padded with
     -1; padded rows get ``NEG_INF``.  Runs inside the ``nets.policy`` span.
+    Where ``ops/policy_mlp.py`` ``fused_weights`` admits the call (CUDA, a
+    float32 ReLU trunk of two linears of one width, a multiple of 4 up to
+    112, one 1-wide head) the layers past the state product run as one
+    kernel; otherwise as the plain ops of :func:`action_in_input_heads`.
     """
     with span("nets.policy"):
+        fused = policy_mlp.fused_weights(spec, params, state, legal_cards)
+        if fused is not None:
+            return policy_mlp.policy_logits(_state_product(spec, params, state), legal_cards, *fused, CARDS - 1)
         heads = action_in_input_heads(spec, params, state, legal_cards)
         return torch.where(legal_cards >= 0, heads[0][..., 0], NEG_INF)
+
+
+def _state_product(spec: MLPSpec, params, state):
+    """The first layer's state part, ``norm(state) @ W1[1:] + b1``: ``f32[..., D]``."""
+    first = params["trunk"][0]
+    return _mm(normalize_state(state), first["w"][1:], spec.compute_dtype) + first["b"]
 
 
 def action_in_input_heads(spec: MLPSpec, params, state, legal_cards):
@@ -70,14 +84,11 @@ def action_in_input_heads(spec: MLPSpec, params, state, legal_cards):
     take bfloat16 inputs; the rank-1 action term stays float32, as in JAX.
     """
     act = _activation(spec.activation)
-    state_norm = normalize_state(state)                                   # [..., S]
     # The action feature's normalization: the first block of the action=True layout.
     a_norm = -1.0 + 2.0 * legal_cards.to(torch.float32) / (CARDS - 1)      # [..., H]
-    first = params["trunk"][0]
-    w, b = first["w"], first["b"]                                          # [1+S, D], [D]
     dtype = spec.compute_dtype
-    shared = _mm(state_norm, w[1:], dtype) + b                             # [..., D]
-    h = act(shared[..., None, :] + a_norm[..., :, None] * w[0])            # [..., H, D]
+    shared = _state_product(spec, params, state)                           # [..., D]
+    h = act(shared[..., None, :] + a_norm[..., :, None] * params["trunk"][0]["w"][0])  # [..., H, D]
     for layer in params["trunk"][1:]:
         h = act(linear_apply(layer, h, dtype))
     return tuple(linear_apply(head, h, dtype) for head in params["heads"])

@@ -33,18 +33,19 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("step_kernel.cu", "game_kernel.cu", "act_rollout_kernel.cu", "act_insert_kernel.cu",
-           "act_ablate_kernel.cu", "probe_ops.cu")
+           "act_ablate_kernel.cu", "probe_ops.cu", "policy_mlp.cu")
 HEADERS = ("game.cuh", "random_play.cuh", "act_play.cuh", "row_major_emit.cuh", "feature_major_emit.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # Plain integer launch counters, one per kernel: K1 in its two layouts, K2, K3,
-# K4 in its two layouts and K5 (the main path), K6's three ablation variants and K7's seven probe bodies.
+# K4 in its two layouts and K5 (the main path), K6's three ablation variants, K7's seven probe bodies
+# and the action-in-input policy's forward.
 ABLATE_VARIANTS = ("env", "obs", "mm")      # in the order of rl6_act_ablate's variant codes 0-2
 PROBES = tuple(f"k{i}" for i in range(1, 8))
 LAUNCHES = {"resolve_turn": 0, "resolve_turn_t": 0, "deal_games": 0, "play_random_games": 0, "act_rollout": 0,
             "act_rollout_fm": 0, "act_insert": 0, **{f"act_ablate_{v}": 0 for v in ABLATE_VARIANTS},
-            **{f"probe_{k}": 0 for k in PROBES}}
+            **{f"probe_{k}": 0 for k in PROBES}, "policy_mlp": 0}
 
 # Filled by the first build() in this process: seconds of nvcc when it compiled,
 # and ptxas lines per kernel (kept beside the library in ptxas.json).
@@ -81,6 +82,7 @@ SIGNATURES = {
     "rl6_probe_k6": [_VP, _VP, _VP, _I, _I, _VP],
     "rl6_probe_k7": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "rl6_play_games": [],
+    "rl6_policy_mlp": [_VP, _VP, _I64, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _F, _VP, _VP, _VP, _VP],
 }
 
 

@@ -4,6 +4,7 @@ Run on a machine with an NVIDIA card: ``python -m pytest tests/ -m gpu -q``.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from rl6nimmt_torch.experiments import act_rollout_ablate as ablate
 from rl6nimmt_torch.experiments.probe_ops import compare, probe_inputs, probes
 from rl6nimmt_torch.engine import EnvConfig, deal, observe, step
 from rl6nimmt_torch.nets import draw_mlp_noise, mlp_init
-from rl6nimmt_torch.ops import _build
+from rl6nimmt_torch.ops import _build, policy_mlp
 from rl6nimmt_torch.ops.act_rollout_check import (
     fm_agreement,
     greedy_replay_agreement,
@@ -497,7 +498,9 @@ def test_search_at_match_shapes_on_card_equals_cpu(players, games, root):
 @pytest.mark.parametrize("roster", [("puct", "uniform"), ("puct", "policy", "uniform", "random")])
 def test_device_match_launches(roster):
     """A match launches K2 once and K1 once for every match turn and every
-    playout turn, and nothing else."""
+    playout turn; each net seat (puct, policy) launches policy_mlp once a
+    decision for its root and once a playout turn; nothing else launches and
+    no policy forward falls back to the plain ops."""
     from rl6nimmt_torch.nets import MLPSpec
     from rl6nimmt_torch.runtime.device_match import make_device_match_fn, playout_turns_per_seat
 
@@ -507,12 +510,16 @@ def test_device_match_launches(roster):
     params = mlp_init(torch.Generator(device=dev).manual_seed(0), spec)
     fn = make_device_match_fn(cfg, roster, spec, num_games=16, mc_max=24, device=dev)
     _build.reset_launches()
+    policy_mlp.FALLBACKS["policy_mlp"] = 0
     scores = fn(tuple(params if k in ("puct", "policy") else None for k in roster),
                 torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
     searchers = sum(k != "random" for k in roster)
-    want = {"deal_games": 1, "resolve_turn": cfg.max_turns + searchers * playout_turns_per_seat(cfg, 24)}
+    nets = sum(k in ("puct", "policy") for k in roster)
+    want = {"deal_games": 1, "resolve_turn": cfg.max_turns + searchers * playout_turns_per_seat(cfg, 24),
+            "policy_mlp": nets * (cfg.max_turns + playout_turns_per_seat(cfg, 24))}
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+    assert policy_mlp.FALLBACKS["policy_mlp"] == 0
     assert scores.shape == (16, len(roster)) and (scores <= 0).all()
 
 
@@ -583,7 +590,10 @@ def test_learner_step_launches_k2_once_and_k1_ten_times(learner):
     _build.reset_launches()
     metrics = arm.step()
     torch.cuda.synchronize()
-    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": cfg.max_turns}
+    # REINFORCE's policy forward is one policy_mlp launch a turn; ACER's two heads run the plain ops.
+    policy = {"policy_mlp": cfg.max_turns} if learner == "reinforce" else {}
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": cfg.max_turns,
+                                                                **policy}
     assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
@@ -628,7 +638,9 @@ def test_wrapper_launches_k2_a_reset_and_k1_a_step():
 def test_device_block_launches(K):
     """A block launches K2 once and K1 once a game turn and once a playout turn
     of every search call: the seats without a net (random, MCS) and each
-    PUCT agent decide in one call each, ceil(n_mc / K) rounds of n turns."""
+    PUCT agent decide in one call each, ceil(n_mc / K) rounds of n turns.  The
+    PUCT agent's call launches policy_mlp once for its roots and once a
+    playout turn; no policy forward falls back to the plain ops."""
     from rl6nimmt_torch import agents as tag
     from rl6nimmt_torch.runtime.device_tournament import DeviceBlockSession
 
@@ -639,11 +651,14 @@ def test_device_block_launches(K):
     dqn = tag.Noisy_D3QN(seed=3)
     session = DeviceBlockSession([[rnd, mcs, puct], [mcs, puct, dqn], [puct, rnd, dqn]] * 4, batch=K)
     _build.reset_launches()
+    policy_mlp.FALLBACKS["policy_mlp"] = 0
     session.dispatch()
     torch.cuda.synchronize()
     rounds = lambda n: -(-min(16, 10 * math.factorial(n)) // K)
-    want = 10 + 2 * sum(rounds(n) * n for n in range(1, 11))
-    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": want}
+    playout_turns = sum(rounds(n) * n for n in range(1, 11))
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10 + 2 * playout_turns,
+                                                                "policy_mlp": 10 + playout_turns}
+    assert policy_mlp.FALLBACKS["policy_mlp"] == 0
     scores = session.finalize()
     assert len(scores) == 12 and all((s <= 0).all() for s in scores)
 
@@ -723,9 +738,13 @@ def test_arena_launches_and_card_equals_cpu():
               tag.BatchedACERAgent(seed=2, device=dev), tag.BatchedReinforceAgent(seed=3, device=dev)]
     for lineup in (agents, agents[2:]):
         _build.reset_launches()
+        policy_mlp.FALLBACKS["policy_mlp"] = 0
         scores = play_match(lineup, 4096, seed=5, device=dev)
         torch.cuda.synchronize()
-        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10}
+        # The REINFORCE seat's forward is one policy_mlp launch a turn; the ACER seat's two heads fall back.
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10,
+                                                                    "policy_mlp": 10}
+        assert policy_mlp.FALLBACKS["policy_mlp"] == 10
         assert scores.shape == (4096, len(lineup)) and (scores <= 0).all()
     gen = torch.Generator().manual_seed(6)
     noise = ArenaNoise(deal_seed=int(torch.randint(0, 2**62, (1,), generator=gen)),
@@ -855,3 +874,159 @@ def test_bf16_product_on_card_matches_cpu_route(x_shape, out):
     for a, b in zip(grads[1], grads[0]):
         assert torch.equal(a, a.to(torch.bfloat16).float())
         assert bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-5 * float(b.abs().max())).all())
+
+
+# ----------------------------------------- the action-in-input policy forward
+
+
+def _policy_inputs(dev, M, S, D=100, live="random", seed=0):
+    """``(shared, cards, weights)`` of a policy net drawn as ``mlp_init`` draws
+    it: ``shared`` the state product of uniform states in [-1, 1], ``cards``
+    ``int32[M, S]`` whose first ``n`` slots of a row hold cards and the rest -1
+    (``live="random"``: n uniform in 0..S; ``"all"``: n = S)."""
+    from rl6nimmt_torch.nets import MLPSpec
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = mlp_init(gen, MLPSpec(48, hidden_sizes=(D, D)), dev)
+    w1, b1 = params["trunk"][0]["w"], params["trunk"][0]["b"]
+    shared = (torch.rand((M, 47), generator=gen, device=dev) * 2 - 1) @ w1[1:] + b1
+    cards = torch.randint(0, 104, (M, S), generator=gen, device=dev, dtype=torch.int32)
+    n = torch.randint(0, S + 1, (M, 1), generator=gen, device=dev) if live == "random" else S
+    cards = torch.where(torch.arange(S, device=dev) < n, cards, -1)
+    weights = (w1[0], params["trunk"][1]["w"], params["trunk"][1]["b"], params["heads"][0]["w"],
+               params["heads"][0]["b"])
+    return shared, cards, weights
+
+
+def _policy_gap(got, want, cards, h2, w3, b3):
+    """The largest gap of a live logit over its row's scale: the largest, over
+    the row's live slots, of ``|b3| + sum |h2 * w3|`` (the twin's ``h2``), which
+    bounds a logit's float32 round-off.  (The row's largest |logit| is no scale:
+    a row whose live logits all sit near 0 reads gaps of 1e-3 and more between
+    any two float32 summation orders; the twin against itself in float64 reads
+    up to 6.7e-3 of it at 131,072 rows, 1.2e-7 of this scale.)"""
+    live = cards >= 0
+    terms = (h2 * w3[:, 0]).abs().sum(dim=-1) + b3.abs()
+    scale = torch.where(live, terms, 0.0).amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    return float(torch.where(live, (got - want).abs() / scale, 0.0).max())
+
+
+POLICY_SHAPES = ([(131072, 10, 100, "random")]                     # the REINFORCE evaluation's seat
+                 + [(262144, s, 100, "all") for s in range(10, 0, -1)]  # the train rollout's H - t slots
+                 + [(m, 10, d, "random") for m in (1, 33) for d in (100, 112)]
+                 + [(77, 16, 112, "random"), (50, 3, 4, "random"), (5000, 7, 36, "random")])
+
+
+@pytest.mark.parametrize("M,S,D,live", POLICY_SHAPES)
+def test_policy_mlp_matches_twin(M, S, D, live):
+    """The kernel against its twin: every live logit within 1e-5 of its row's
+    largest, NEG_INF exactly on the padded slots; with the hidden tensors kept,
+    the same logits, h1 as the twin's and h2 within float32 summation order."""
+    from rl6nimmt_torch.ops.policy_mlp import NEG_INF, _launch, policy_mlp_plain
+
+    dev = _cuda()
+    shared, cards, w = _policy_inputs(dev, M, S, D, live, seed=M + S)
+    _build.reset_launches()
+    logits, _, _ = _launch(shared, cards, *w, 103.0, save=False)
+    kept, h1, h2 = _launch(shared, cards, *w, 103.0, save=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["policy_mlp"] == 2
+    want, h1_want, h2_want = policy_mlp_plain(shared, cards, *w, 103.0, save=True)
+    assert torch.equal(logits == NEG_INF, cards < 0)
+    assert _policy_gap(logits, want, cards, h2_want, w[3], w[4]) <= 1e-5
+    assert torch.equal(kept, logits)
+    torch.testing.assert_close(h1, h1_want, rtol=1e-6, atol=1e-6)
+    assert float((h2 - h2_want).abs().max()) <= 1e-5 * float(h2_want.abs().max())
+
+
+def test_policy_mlp_strided_cards_and_all_padded_rows():
+    """A seat's hands are a strided view of ``[G, P, H]``; rows with no card
+    get NEG_INF only and zeros in the kept tensors."""
+    from rl6nimmt_torch.ops.policy_mlp import NEG_INF, _launch, policy_logits, policy_mlp_plain
+
+    dev = _cuda()
+    shared, cards, w = _policy_inputs(dev, 4 * 999, 10, seed=5)
+    cards[::3] = -1
+    seat = cards.reshape(999, 4, 10)[:, 2]
+    got = policy_logits(shared.reshape(999, 4, 100)[:, 2], seat, *w, 103.0)
+    want, _, h2_want = policy_mlp_plain(shared.reshape(999, 4, 100)[:, 2], seat, *w, 103.0, save=True)
+    assert torch.equal(got == NEG_INF, seat < 0) and _policy_gap(got, want, seat, h2_want, w[3], w[4]) <= 1e-5
+    _, h1, h2 = _launch(shared, cards, *w, 103.0, save=True)
+    assert not h1[::3].any() and not h2[::3].any()
+
+
+def test_policy_mlp_backward_on_card_matches_autograd():
+    """The Function (kernel forward, torch backward) against autograd through
+    the twin on the card, padded slots included: each gradient's distance
+    within 1e-5 of the larger of its norm and the median gradient's (the
+    benchmark's ``grad_gap`` scale: the head bias's gradient is the round-off
+    of a sum the softmax makes zero)."""
+    from rl6nimmt_torch.ops.policy_mlp import PolicyMLP, policy_mlp_plain
+
+    dev = _cuda()
+    shared, cards, w = _policy_inputs(dev, 4096, 10, seed=9)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    weight = torch.randn(cards.shape, generator=gen, device=dev)
+    grads = []
+    for fused in (True, False):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (shared,) + w]
+        logits = (PolicyMLP.apply(leaves[0], cards, *leaves[1:], 103.0) if fused
+                  else policy_mlp_plain(leaves[0], cards, *leaves[1:], 103.0))
+        loss = (torch.log_softmax(logits, dim=-1) * weight).where(cards >= 0, 0.0).sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    norms = [float(b.norm()) for b in grads[1]]
+    median = sorted(norms)[len(norms) // 2]
+    gaps = [float((a - b).norm()) / max(n, median) for a, b, n in zip(*grads, norms)]
+    assert max(gaps) <= 1e-5, gaps
+
+
+def test_policy_mlp_widths_in_any_order():
+    """A wide launch after a narrower one on the same card: the kernel's shared
+    memory limit, raised once for the widest net, is never lowered by a
+    narrower width's first launch."""
+    from rl6nimmt_torch.ops.policy_mlp import _launch, policy_mlp_plain
+
+    dev = _cuda()
+    for D in (108, 92, 108):
+        shared, cards, w = _policy_inputs(dev, 999, 10, D, seed=D)
+        logits, _, _ = _launch(shared, cards, *w, 103.0, save=False)
+        want, _, h2_want = policy_mlp_plain(shared, cards, *w, 103.0, save=True)
+        assert _policy_gap(logits, want, cards, h2_want, w[3], w[4]) <= 1e-5
+
+
+def test_policy_mlp_engages_on_the_cells_paths():
+    """The benchmark cells' two paths at a small G: a train step launches the
+    kernel once a turn (10), a match once a turn for its policy seat, and no
+    call falls back."""
+    from rl6nimmt_torch.agents.dqn import Adam
+    from rl6nimmt_torch.nets import MLPSpec
+    from rl6nimmt_torch.ops import policy_mlp
+    from rl6nimmt_torch.runtime.arena import SeatPolicy, make_arena
+    from rl6nimmt_torch.runtime.vector import make_reinforce_train_step
+
+    dev = _cuda()
+    cfg = EnvConfig(4)
+    spec = MLPSpec(cfg.state_length + 1, hidden_sizes=(100, 100), head_sizes=(1,))
+    params = mlp_init(torch.Generator(device=dev).manual_seed(0), spec)
+    adam = Adam(1e-3)
+    train = make_reinforce_train_step(cfg, spec, adam, 1024, device=dev)
+    arena = make_arena(cfg, (SeatPolicy("policy", spec=spec),) + (SeatPolicy("random"),) * 3, 2048, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for run, want in ((lambda: train(params, adam.init(params), gen)[2]["loss"], True),
+                      (lambda: arena((params, None, None, None), (0.0,) * 4, gen), False)):
+        _build.reset_launches()
+        policy_mlp.FALLBACKS["policy_mlp"] = 0
+        out = run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"deal_games": 1, "resolve_turn": 10,
+                                                                    "policy_mlp": 10}
+        assert policy_mlp.FALLBACKS["policy_mlp"] == 0 and torch.isfinite(out.float()).all()
+
+
+def test_policy_mlp_ptxas_no_stack_no_spills():
+    """The kernel builds with 0 bytes of stack and no spills."""
+    _cuda()
+    _build.library()
+    line = _build.BUILD_INFO["ptxas"]["policy_mlp_kernel"]
+    assert all(re.search(rf"(?<![\d.]){z}", line) for z in ("0 bytes stack frame", "0 bytes spill stores",
+                                                           "0 bytes spill loads")), line
