@@ -15,11 +15,21 @@ step), ``model_flops`` (a step's), ``first_step``, ``warm_up()``, ``step(i) ->
 handle`` (the call into the program), ``read(handle)`` (the host read that ends
 the step), ``release()`` and ``check() -> (checks, failed)``: each compared
 number with its limit.
+
+The traffic's ``in_flight`` (1 if it has none) is how many steps the window
+has sent and not yet read while it sends the next: with 2, the host sends
+step ``i + 1`` before it waits for step ``i``, so the card has a step queued
+while the host reads, and a short stall of the host costs no card time.  The
+card's launch queue holds about 1,000 launches, about one step, before a launch
+blocks the host; ``main`` scales it by ``LAUNCH_QUEUES`` (the CUDA driver's
+``CUDA_SCALE_LAUNCH_QUEUES``, set before CUDA starts) to about 4,000, so that
+three or four steps can wait on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import importlib
 import json
@@ -35,6 +45,7 @@ from .common import HERE, ROOT, load_json
 FORBIDDEN = ("jax", "jaxlib", "flax", "rl6nimmt_tpu")
 TRACE_SECONDS = 3.0
 TRACE_STEPS = (5, 20)
+LAUNCH_QUEUES = "4x"  # the largest scale the driver offers
 
 
 def process_start() -> float:
@@ -52,8 +63,9 @@ def process_start() -> float:
 @dataclass
 class Window:
     first: int
-    step_s: List[float] = field(default_factory=list)
-    dispatch_s: List[float] = field(default_factory=list)
+    step_s: List[float] = field(default_factory=list)       # host clock, from read to read
+    dispatch_s: List[float] = field(default_factory=list)   # host clock, the call into the program
+    card_step_s: List[float] = field(default_factory=list)  # the card's clock, from step end to step end
     seconds: float = 0.0
 
     @property
@@ -105,31 +117,72 @@ def entry_module(traffic: dict):
     return importlib.import_module(f"benchmark.entries.{traffic['entry']}")
 
 
-def run_steps(cell, window: Window, index: int, record) -> None:
-    """One step: the call into the program, then the read that ends it."""
-    t0 = time.perf_counter()
-    with record("bench.step"):
-        handle = cell.step(index)
-    t1 = time.perf_counter()
-    with record("bench.read"):
-        cell.read(handle)
-    t2 = time.perf_counter()
-    window.step_s.append(t2 - t0)
-    window.dispatch_s.append(t1 - t0)
+class Reader:
+    """Reads a step's results once the step is done.  On a card it records a
+    timed event right after the step's work and reads on a stream of its own
+    behind that event, so that a read waits for its own step and not for the
+    steps sent after it; the events give each step's time on the card's clock."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.torch, self.stream = torch, torch.cuda.Stream(dev)
+
+    def mark(self):
+        if not self.cuda:
+            return None
+        event = self.torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def read(self, cell, handle, mark) -> None:
+        if not self.cuda:
+            cell.read(handle)
+            return
+        with self.torch.cuda.stream(self.stream):
+            self.stream.wait_event(mark)
+            cell.read(handle)
+
+    @staticmethod
+    def between(marks) -> List[float]:
+        """Seconds on the card's clock from each mark to the next."""
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])] if marks and marks[0] else []
 
 
-def measure(cell, first: int, seconds: float, record) -> Window:
-    """Steps back to back until ``seconds`` have passed; the step that crosses
-    the end counts whole."""
+def measure(cell, first: int, record, reader: Reader, in_flight: int = 1, seconds: Optional[float] = None,
+            steps: Optional[int] = None) -> Window:
+    """Steps sent back to back, each read once ``in_flight`` steps are unread,
+    until ``seconds`` have passed or ``steps`` were sent.  Then nothing more
+    is sent, every sent step is read, and the window ends at the last read: all
+    of that work over all of that time.  A step's time runs from the read that
+    ended the step before (the window's start, for the first) to its own read
+    on the host's clock, and on the card's from the end of the step before
+    (the window's start) to its own end."""
     window = Window(first)
-    t_start = time.perf_counter()
+    pending = collections.deque()
+    marks = [reader.mark()]
+    t_start = last = time.perf_counter()
     i = first
     while True:
-        run_steps(cell, window, i, record)
+        t0 = time.perf_counter()
+        with record("bench.step"):
+            pending.append((cell.step(i), reader.mark()))
+        window.dispatch_s.append(time.perf_counter() - t0)
+        marks.append(pending[-1][1])
         i += 1
-        if time.perf_counter() - t_start >= seconds:
+        done = i - first >= steps if steps is not None else time.perf_counter() - t_start >= seconds
+        while pending and (done or len(pending) >= in_flight):
+            with record("bench.read"):
+                reader.read(cell, *pending.popleft())
+            now = time.perf_counter()
+            window.step_s.append(now - last)
+            last = now
+        if done:
             break
-    window.seconds = time.perf_counter() - t_start
+    window.seconds = last - t_start
+    window.card_step_s = reader.between(marks)
     return window
 
 
@@ -152,21 +205,22 @@ def run_cell(bench: dict, args, device: str = "cuda", started: Optional[float] =
     torch.backends.cudnn.allow_tf32 = False
 
     cell = entry_module(traffic).build(config, traffic, args.seed, dev)
+    reader, in_flight = Reader(dev), int(traffic.get("in_flight", 1))
     cell.warm_up()
     sync()
     gc.collect()
     gc.freeze()
     setup_s = time.time() - started
 
-    window = measure(cell, cell.first_step, args.seconds, record_function)
+    window = measure(cell, cell.first_step, record_function, reader, in_flight, seconds=args.seconds)
     run = Run(cell, setup_s, window)
     if args.trace:
         per_step = window.seconds / window.steps
         n = int(min(max(TRACE_SECONDS / per_step, TRACE_STEPS[0]), TRACE_STEPS[1]))
         from .trace_reader import trace_steps
 
-        traced = Window(cell.first_step + window.steps)
-        run.trace = trace_steps(lambda i: run_steps(cell, traced, i, record_function), traced.first, n, sync)
+        run.trace = trace_steps(lambda: measure(cell, cell.first_step + window.steps, record_function, reader,
+                                                in_flight, steps=n).steps, sync)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     metrics = {}
@@ -182,8 +236,10 @@ def run_cell(bench: dict, args, device: str = "cuda", started: Optional[float] =
         torch.cuda.empty_cache()
     checks, failed = cell.check()
     ms = sorted(s * 1e3 for s in window.step_s)
+    card = sorted(s * 1e3 for s in window.card_step_s) or [0.0]
     print(f"note steps {len(ms)} median_ms {statistics.median(ms)!r} max_ms {ms[-1]!r} "
-          f"dispatch_median_ms {statistics.median(window.dispatch_s) * 1e3!r}", file=sys.stderr)
+          f"dispatch_median_ms {statistics.median(window.dispatch_s) * 1e3!r} "
+          f"card_median_ms {statistics.median(card)!r} card_max_ms {card[-1]!r}", file=sys.stderr)
     for key, value in getattr(cell, "notes", {}).items():
         print(f"note {key} {value!r}", file=sys.stderr)
     attempted = window.steps + (run.trace.steps if run.trace else 0)
@@ -206,6 +262,7 @@ def main(argv=None) -> int:
     args = parse(argv)
     bench = load_json(ROOT / "BENCHMARK.json")
     wl, _, _ = find_cell(bench, args.workload)
+    os.environ["CUDA_SCALE_LAUNCH_QUEUES"] = LAUNCH_QUEUES
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < wl["chips"]:

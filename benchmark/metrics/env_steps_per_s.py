@@ -1,4 +1,5 @@
-"""Game turns completed in the window over the window's seconds: G x 10 a step or match."""
+"""Game turns completed in the window over the window's seconds: G x 10 a step
+or match, every step sent counted, the window ending at the last one's read."""
 
 
 def read(run):

@@ -17,7 +17,7 @@ from benchmark.common import HERE, ROOT, load_json
 
 SMALL = {"reinforce_h100.train": {"games": 32, "check_block": 32},
          "d3qn_h64.eval_vs_random": {"games": 64, "check_block": 64, "check_pool": 3},
-         "reinforce_h100.eval_vs_random": {"games": 64, "check_block": 64, "check_pool": 3}}
+         "reinforce_h100.eval_vs_random_g262144": {"games": 64, "check_block": 64, "check_pool": 3}}
 
 
 def _run(workload, seed=2**31 + 17, seconds=0.3, overrides=None):
@@ -35,6 +35,50 @@ def test_cell_runs_correct_with_its_end_to_end_metrics(workload):
     assert all(set(m) == {"value", "unit"} and m["value"] > 0 for m in result["metrics"].values())
     assert all(set(c) == {"value", "limit"} for c in result["checks"].values())
     json.dumps(result)
+
+
+class _Ledger:
+    """A cell that only notes the order of its calls and reads."""
+
+    def __init__(self):
+        self.events = []
+
+    def step(self, i):
+        self.events.append(("step", i))
+        return i
+
+    def read(self, handle):
+        self.events.append(("read", handle))
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 3])
+def test_the_window_sends_ahead_and_reads_every_step_it_sent(in_flight):
+    import contextlib
+
+    import torch
+
+    cell = _Ledger()
+    window = harness.measure(cell, 5, lambda name: contextlib.nullcontext(), harness.Reader(torch.device("cpu")),
+                             in_flight, steps=6)
+    sent = [i for kind, i in cell.events if kind == "step"]
+    read = [i for kind, i in cell.events if kind == "read"]
+    assert sent == read == list(range(5, 11))
+    for i in sent:  # step i is read only after step i + in_flight - 1 was sent
+        later = min(i + in_flight - 1, 10)
+        assert cell.events.index(("step", later)) < cell.events.index(("read", i))
+    assert cell.events[-in_flight:] == [("read", i) for i in range(11 - in_flight, 11)]
+    assert window.steps == len(window.dispatch_s) == 6
+    assert window.seconds == pytest.approx(sum(window.step_s))
+
+
+def test_the_launch_queues_are_deepened_before_cuda_starts(monkeypatch):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    monkeypatch.delenv("CUDA_SCALE_LAUNCH_QUEUES", raising=False)
+    assert harness.main(["--workload", "reinforce_h100.train", "--seed", "1", "--seconds", "1", "--trace", "0"]) == 2
+    assert os.environ["CUDA_SCALE_LAUNCH_QUEUES"] == "4x"
 
 
 def test_no_card_means_no_result(capsys):
@@ -149,7 +193,7 @@ def test_a_planted_fault_makes_the_run_incorrect(workload, fault):
 
 
 @pytest.mark.parametrize("workload,games", [("reinforce_h100.train", 256), ("d3qn_h64.eval_vs_random", 2048),
-                                            ("reinforce_h100.eval_vs_random", 16384)])
+                                            ("reinforce_h100.eval_vs_random_g262144", 16384)])
 def test_the_lower_precision_control_is_incorrect(workload, games):
     bench = load_json(ROOT / "BENCHMARK.json")
     reading = control.readings(bench, workload, 2**31 + 41, "bfloat16", "cpu", 0 if "train" in workload else 3,

@@ -78,3 +78,5 @@ def test_trace_reader_attributes_kernels_and_idle_gaps():
     assert abs(idle["reinforce.rollout"] - 100e-9) < 1e-15
     assert abs(idle["bench.read"] - 350e-9) < 1e-15
     assert [name for name, _ in t.breakdown()["device_ops"]][0] == "gemm"
+    # The step span's 600 ns less its two launches' 5 ns each; the read's copy call lies outside it.
+    assert abs(t.step_host_s - 590e-9) < 1e-15

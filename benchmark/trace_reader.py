@@ -11,6 +11,9 @@ kineto events, and what every per-layer metric and the ``breakdown`` take from i
   the kernel's correlation id, so the device's clock is matched to no span.
 * An idle gap of the device is named by the innermost host span open over it,
   split where that span changes.
+* The host's own time of a step is its ``bench.step`` span less the CUDA
+  runtime's calls inside it (a launch that waits for room in the card's queue
+  waits inside such a call).
 
 Reading the raw events, not the profiler's parsed event tree, keeps this to
 seconds for hundreds of thousands of events.
@@ -42,6 +45,7 @@ class Trace:
     span_device_s: Dict[str, float]                 # span name -> device seconds of the kernels it launched
     idle_by_span: Dict[str, float]                  # innermost span -> idle device seconds under it
     matched_share: float = 1.0                      # kernels whose launch was found
+    step_host_s: float = 0.0                        # host time in the step spans outside runtime calls
     notes: List[str] = field(default_factory=list)
 
     def kernel_mean_s(self, needle: str):
@@ -102,9 +106,26 @@ def classify(e) -> str:
     return "copy" if name.startswith(COPY_PREFIXES) else "kernel"
 
 
-def read_events(events, steps: int, window_span: str = "bench.window") -> Trace:
+def host_outside_runtime(spans, calls, name: str) -> float:
+    """Seconds inside the host spans called ``name`` outside the runtime's calls
+    (``calls``: their ``(start, end)``), in nanoseconds in, seconds out."""
+    calls = _union(calls)
+    starts = [a for a, _ in calls]
+    total = 0
+    for a, b, span in spans:
+        if span != name:
+            continue
+        total += b - a
+        for c, d in calls[max(bisect.bisect_right(starts, a) - 1, 0):]:
+            if c >= b:
+                break
+            total -= max(min(d, b) - max(c, a), 0)
+    return total / 1e9
+
+
+def read_events(events, steps: int, window_span: str = "bench.window", step_span: str = "bench.step") -> Trace:
     """A :class:`Trace` from the kineto events of one traced window."""
-    spans, launch_at, work = [], {}, []
+    spans, launch_at, work, calls = [], {}, [], []
     window = None
     for e in events:
         kind = classify(e)
@@ -115,6 +136,7 @@ def read_events(events, steps: int, window_span: str = "bench.window") -> Trace:
             spans.append((a, b, e.name()))
         elif kind == "launch":
             launch_at[e.correlation_id()] = e.start_ns()
+            calls.append((e.start_ns(), e.start_ns() + e.duration_ns()))
         elif kind in ("kernel", "copy"):
             work.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name(), kind, e.correlation_id()))
     if window is None:
@@ -158,22 +180,23 @@ def read_events(events, steps: int, window_span: str = "bench.window") -> Trace:
     n_work = sum(1 for a, b, *_ in work if b > w0 and a < w1)
     trace = Trace(steps=steps, window_s=(w1 - w0) / 1e9, busy_s=sum(b - a for a, b in busy) / 1e9,
                   launches=kernels, by_kernel=by_kernel, span_device_s=span_dev, idle_by_span=idle_by_span,
-                  matched_share=matched / n_work if n_work else 0.0)
+                  matched_share=matched / n_work if n_work else 0.0,
+                  step_host_s=host_outside_runtime(spans, calls, step_span))
     if trace.matched_share < 0.99:
         trace.notes.append(f"only {trace.matched_share:.4f} of the device events matched a launch")
     return trace
 
 
-def trace_steps(run_step: Callable[[int], None], first: int, steps: int, sync: Callable[[], None]) -> Trace:
-    """Run ``steps`` steps (``run_step(i)`` for ``i`` from ``first``) under the
-    profiler, inside a ``bench.window`` span, and read the trace."""
+def trace_steps(run_window: Callable[[], int], sync: Callable[[], None]) -> Trace:
+    """Run one window of steps (``run_window()`` runs it and returns how many
+    steps it ran) under the profiler, inside a ``bench.window`` span, and read
+    the trace."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("bench.window"):
-            for i in range(first, first + steps):
-                run_step(i)
+            steps = run_window()
         sync()
     trace = read_events(prof.profiler.kineto_results.events(), steps)
     for note in trace.notes:
